@@ -1,8 +1,10 @@
-"""Whole-population batched ``haplotype-transcripts`` inference
-(counterpart of the staged route of ``rpvg_tpu/infer/batched_models.py``,
-``batched_haplotype_transcripts`` with ``RPVG_TPU_FUSED_NESTED=0``).
+"""Whole-population batched inference of the four models on one device
+(counterpart of ``rpvg_tpu/infer/batched_models.py``), without Gibbs
+sampling.
 
-Five phases over every cluster at once:
+``haplotype-transcripts`` (collapsed groups, ploidy 2) is the staged
+route of ``batched_haplotype_transcripts`` (``RPVG_TPU_FUSED_NESTED=0``
+in the JAX package), five phases over every cluster at once:
 
 * A (host): grouped probability matrices, one threaded native call;
 * B (device): diploid pair scoring, selection on the host;
@@ -10,9 +12,16 @@ Five phases over every cluster at once:
 * D (device): one EM run over every (cluster, subset) task;
 * E (host): posterior-weighted combination per cluster.
 
-The fused native route of the JAX package (one C++ call for the whole
-chain) is not ported: on the card the staged device route is the one to
-measure first.
+The other models run a subset of the same phases:
+
+* ``transcripts``: A (noise-normalised matrices), D, E (abundances);
+* ``strains``: C (greedy minimum path cover per cluster and the cover
+  sub-matrices, the staged route of ``batched_strains``), D, E;
+* ``haplotypes`` at ploidy 2: A (matrices), B, E (posteriors).
+
+The fused native routes of the JAX package (one C++ call for the whole
+nested chain, or for the strains host half and its EM) are not ported:
+on the card the staged device routes are the ones to measure first.
 """
 
 from __future__ import annotations
@@ -25,14 +34,22 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from rpvg_tpu.constants import HAPLOTYPES_MIN_REL_LIKELIHOOD
 from rpvg_tpu.infer.matrices import (
+    add_noise_and_normalize,
     cluster_matrix,
+    construct_probability_matrix,
     native_subset_collapse_multi,
     total_read_count,
 )
 from rpvg_tpu_torch.device import synchronize
 from rpvg_tpu_torch.infer.batching import run_batched_em
-from rpvg_tpu_torch.infer.estimators import NestedPathAbundanceEstimator
+from rpvg_tpu_torch.infer.estimators import (
+    MinimumPathAbundanceEstimator,
+    NestedPathAbundanceEstimator,
+    PathAbundanceEstimator,
+    PathGroupPosteriorEstimator,
+)
 from rpvg_tpu_torch.infer.posteriors import diploid_posteriors_batched
 
 PHASES = (
@@ -245,3 +262,126 @@ def batched_haplotype_transcripts(estimator, cluster_data, device: torch.device)
         "scored_clusters": len(meta),
         "em_tasks": len(all_tasks),
     }
+
+
+def supports_batched_transcripts(estimator) -> bool:
+    """Non-Gibbs ``transcripts`` inference."""
+    return type(estimator) is PathAbundanceEstimator and estimator.num_gibbs_samples == 0
+
+
+def batched_transcripts(estimator, cluster_data, device: torch.device) -> Dict:
+    """Batched ``transcripts`` inference on ``device`` (``batched_
+    transcripts`` of the JAX package without Gibbs): one EM run over
+    every cluster.  Mutates the estimates in cluster_data in place;
+    returns ``phase_seconds`` (A, D, E) and ``em_tasks``."""
+    if not supports_batched_transcripts(estimator):
+        raise NotImplementedError("only non-Gibbs transcripts is ported")
+    clock = _PhaseClock(device)
+    inputs = []
+    meta = []
+    for ci, (est, cluster_probs) in enumerate(cluster_data):
+        est.reset(len(est.paths), 1)
+        if not cluster_probs:
+            continue
+        probs, noise, counts = construct_probability_matrix(cluster_probs, len(est.paths))
+        full_probs = add_noise_and_normalize(probs, noise)
+        est.total_count = float(counts.sum())
+        inputs.append((full_probs, counts))
+        meta.append(ci)
+    clock.lap("A", "noise-normalised matrices")
+
+    em_results = run_batched_em(
+        inputs, estimator.max_em_its, estimator.max_rel_em_conv, device
+    )
+    clock.lap("D", f"batched EM ({len(inputs)} tasks)")
+
+    for ci, (abundances, noise_count) in zip(meta, em_results):
+        est = cluster_data[ci][0]
+        est.abundances = list(map(float, abundances))
+        est.noise_count = noise_count
+    clock.lap("E", "abundances")
+    return {"phase_seconds": clock.seconds, "em_tasks": len(inputs)}
+
+
+def supports_batched_strains(estimator) -> bool:
+    """Non-Gibbs ``strains`` inference."""
+    return (
+        isinstance(estimator, MinimumPathAbundanceEstimator)
+        and estimator.num_gibbs_samples == 0
+    )
+
+
+def batched_strains(estimator, cluster_data, device: torch.device) -> Dict:
+    """Batched ``strains`` inference on ``device`` (the staged route of
+    ``batched_strains`` without Gibbs): the greedy cover and its
+    sub-matrix per cluster on the host, then one EM run over every
+    cover.  Mutates the estimates in cluster_data in place; returns
+    ``phase_seconds`` (C, D, E) and ``em_tasks``."""
+    if not supports_batched_strains(estimator):
+        raise NotImplementedError("only non-Gibbs strains is ported")
+    clock = _PhaseClock(device)
+    tasks = []
+    meta = []
+    for ci, (est, cluster_probs) in enumerate(cluster_data):
+        est.reset(len(est.paths), 1)
+        if not cluster_probs:
+            continue
+        task = estimator.prepare_cover_task(est, cluster_probs)
+        if task is None:
+            continue
+        tasks.append(task)
+        meta.append(ci)
+    clock.lap("C", "minimum path covers")
+
+    em_results = run_batched_em(
+        [(task["matrix"], task["counts"]) for task in tasks],
+        estimator.max_em_its,
+        estimator.max_rel_em_conv,
+        device,
+    )
+    clock.lap("D", f"batched EM ({len(tasks)} tasks)")
+
+    for ci, task, (abundances, noise_count) in zip(meta, tasks, em_results):
+        estimator.apply_cover_result(cluster_data[ci][0], task, abundances, noise_count)
+    clock.lap("E", "cover abundances")
+    return {"phase_seconds": clock.seconds, "em_tasks": len(tasks)}
+
+
+def supports_batched_haplotypes(estimator) -> bool:
+    """Non-Gibbs ``haplotypes`` inference at ploidy 2."""
+    return (
+        isinstance(estimator, PathGroupPosteriorEstimator)
+        and estimator.ploidy == 2
+        and not estimator.use_hap_gibbs
+    )
+
+
+def batched_haplotypes(estimator, cluster_data, device: torch.device) -> Dict:
+    """Batched ``haplotypes`` inference on ``device`` (``batched_
+    haplotypes`` of the JAX package at ploidy 2 without Gibbs): dense
+    diploid pair scoring over every cluster.  Mutates the estimates in
+    cluster_data in place; returns ``phase_seconds`` (A, B, E) and
+    ``scored_clusters``."""
+    if not supports_batched_haplotypes(estimator):
+        raise NotImplementedError("only non-Gibbs, ploidy-2 haplotypes is ported")
+    clock = _PhaseClock(device)
+    inputs = []
+    meta = []
+    for ci, (est, cluster_probs) in enumerate(cluster_data):
+        est.reset(0, 0)
+        if not cluster_probs:
+            continue
+        probs, noise, counts = construct_probability_matrix(cluster_probs, len(est.paths))
+        inputs.append((probs, noise, counts, [p.source_count for p in est.paths]))
+        meta.append(ci)
+    clock.lap("A", "probability matrices")
+
+    results = diploid_posteriors_batched(inputs, HAPLOTYPES_MIN_REL_LIKELIHOOD, device)
+    clock.lap("B", "diploid posteriors")
+
+    for ci, (groups, posteriors) in zip(meta, results):
+        est = cluster_data[ci][0]
+        est.path_group_sets = groups
+        est.posteriors = list(map(float, posteriors))
+    clock.lap("E", "posteriors")
+    return {"phase_seconds": clock.seconds, "scored_clusters": len(meta)}

@@ -1,24 +1,57 @@
-"""Ragged EM task batches (counterpart of ``rpvg_tpu/infer/batching.py``).
+"""EM task batches (counterpart of ``rpvg_tpu/infer/batching.py``).
 
 The JAX package hands the EM phase a list of per-task numpy inputs
-``(probs (R, C), counts (R,))``.  :func:`pack_ragged` carries them into
-the port's device state, concatenated without padding in exactly the
-layout of ``run_native_em``; :func:`run_batched_em` solves every task
-(the CUDA kernel for CUDA tensors, the padded plain version for CPU
-tensors) and folds sub-threshold mass on the host, returning the
+``(probs (R, C), counts (R,))``.  Two routes carry them into the port's
+device state:
+
+* :func:`pack_ragged` concatenates them without padding in exactly the
+  layout of ``run_native_em`` for the ragged kernel
+  (``ops/em_cuda.py``), the default route of :func:`run_batched_em`;
+* under the JAX package's own ``RPVG_TPU_FUSE_EM=1``,
+  :func:`dispatch_em_device` pads them into the JAX package's shape
+  buckets (:func:`plan_chunks`, :func:`build_block`), groups buckets
+  into launches (:func:`plan_em_groups`) and solves each group with one
+  launch of the multi-bucket kernel (``ops/em_fused_cuda.py``);
+  :func:`gather_em_device` folds the results.
+
+Either way CUDA tensors go to a kernel and CPU tensors to its plain
+version, and sub-threshold mass is folded on the host, returning the
 ``(path read counts, noise count)`` contract of ``gather_em_device``.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from rpvg_tpu.constants import MIN_EM_ABUNDANCE
-from rpvg_tpu_torch.ops import em_cuda
+from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
 from rpvg_tpu_torch.ops.em_cuda import RaggedTasks
+from rpvg_tpu_torch.ops.em_fused_cuda import Block
+
+# Bytes of padded state (probabilities, counts, masks in float64) one
+# launch of the multi-bucket kernel stages at most when buckets share it
+# (the JAX package's 8 MiB VMEM group budget, em_pallas.py:103).  It
+# sets which buckets share a launch, not the results.
+_FUSED_LAUNCH_BYTES = 8 * 2**20
+
+
+def _ceil_pow2(n: int, floor: int = 8) -> int:
+    size = floor
+    while size < n:
+        size *= 2
+    return size
+
+
+def _ceil_pow4(n: int, floor: int = 8) -> int:
+    """Coarser (4x-step) bucketing for the row axis: fewer compiled
+    shapes at the cost of more padded compute."""
+    size = floor
+    while size < n:
+        size *= 4
+    return size
 
 
 def em_postprocess(fracs: np.ndarray, total: float) -> Tuple[np.ndarray, float]:
@@ -99,11 +132,20 @@ def run_batched_em(
     max_rel_em_conv: float,
     device: torch.device,
 ) -> List[Tuple[np.ndarray, float]]:
-    """EM over every task on ``device``.  Returns per task (path read
-    counts, noise count) with the reference's sub-threshold folding,
-    done in float64 on the host exactly like the native kernel's tail."""
+    """EM over every task on ``device``: the ragged kernel, or the
+    multi-bucket kernel when :func:`fuse_em_enabled`.  Returns per task
+    (path read counts, noise count) with the reference's sub-threshold
+    folding, done in float64 on the host exactly like the native
+    kernel's tail."""
     if not cluster_inputs:
         return []
+    if fuse_em_enabled():
+        results: List[Tuple[np.ndarray, float]] = [None] * len(cluster_inputs)
+        pending = dispatch_em_device(
+            cluster_inputs, range(len(cluster_inputs)), max_em_its, max_rel_em_conv, device
+        )
+        gather_em_device(pending, cluster_inputs, results)
+        return results
     tasks = pack_ragged(cluster_inputs, device)
     fracs, _ = em_cuda.em_fixed_point(tasks, max_em_its, max_rel_em_conv)
     return fold_fractions(fracs, tasks, cluster_inputs)
@@ -123,3 +165,129 @@ def fold_fractions(
         em_postprocess(fracs[col_offsets[i] : col_offsets[i + 1]], float(counts.sum()))
         for i, (_, counts) in enumerate(cluster_inputs)
     ]
+
+
+def fuse_em_enabled() -> bool:
+    """Whether the multi-bucket fused EM launch is enabled.
+
+    Fusion defaults OFF: the first end-to-end A/B (FUSE_AB_r05.json)
+    measured the fused launch 2.6x slower than separate launches with
+    the round-4 shared-loop kernel (convergence coupling) and still
+    ~1.9x slower after per-block loops were decoupled — the single
+    launch keeps every block VMEM-resident for the whole group while
+    the (K-1) saved dispatches are only ~25-35ms each, an order of
+    magnitude smaller.  The round-4 ">1ms dispatch => fuse" link gate
+    was an inference from kernel-time neutrality under forced
+    iterations, which is structurally blind to real power-law
+    convergence.  RPVG_TPU_FUSE_EM=1 remains an explicit opt-in."""
+    import os
+
+    return os.environ.get("RPVG_TPU_FUSE_EM", "0") == "1"
+
+
+def plan_chunks(
+    shapes: Sequence[Tuple[int, int]], indices: Sequence[int], max_bucket_rows: int = 4096
+) -> List[Tuple[List[int], int, int]]:
+    """The JAX package's bucket plan (``rpvg_tpu/infer/batching.py:
+    315-334``): the indexed tasks (``shapes[i]`` is task i's (R, C)) in
+    buckets of rows padded to powers of four and columns to powers of
+    two, each bucket cut into chunks of ``max(1, max_bucket_rows //
+    R_pad) * 8`` tasks.  Returns (chunk indices, R_pad, C_pad) per
+    chunk.  The batch axis is not padded."""
+    buckets: Dict[Tuple[int, int], List[int]] = {}
+    for idx in indices:
+        R, C = shapes[idx]
+        buckets.setdefault((_ceil_pow4(R), _ceil_pow2(C)), []).append(idx)
+    plans = []
+    for (R_pad, C_pad), members in buckets.items():
+        max_batch = max(1, max_bucket_rows // R_pad) * 8
+        for start in range(0, len(members), max_batch):
+            plans.append((members[start : start + max_batch], R_pad, C_pad))
+    return plans
+
+
+def plan_em_groups(
+    cluster_inputs: Sequence[Tuple[np.ndarray, np.ndarray]],
+    indices: Sequence[int],
+    max_bucket_rows: int = 4096,
+) -> List[List[Tuple[List[int], int, int]]]:
+    """The chunks of :func:`plan_chunks`, grouped into launches as
+    ``dispatch_em_device`` groups them (``rpvg_tpu/infer/batching.py:
+    389-421``): one chunk per launch, or under :func:`fuse_em_enabled`
+    consecutive chunks whose padded bytes fit ``_FUSED_LAUNCH_BYTES``
+    together; a chunk larger than that has a launch of its own."""
+    shapes = [probs.shape for probs, _ in cluster_inputs]
+    fuse = fuse_em_enabled()
+    groups: List[List[Tuple[List[int], int, int]]] = []
+    group_bytes = 0
+    for chunk, R_pad, C_pad in plan_chunks(shapes, indices, max_bucket_rows):
+        cost = len(chunk) * (R_pad * C_pad + R_pad + C_pad) * 8
+        if not fuse or cost > _FUSED_LAUNCH_BYTES or not groups or (
+            group_bytes + cost > _FUSED_LAUNCH_BYTES
+        ):
+            groups.append([])
+            group_bytes = 0
+        groups[-1].append((chunk, R_pad, C_pad))
+        group_bytes += cost
+    return groups
+
+
+def build_block(
+    cluster_inputs: Sequence[Tuple[np.ndarray, np.ndarray]],
+    chunk: Sequence[int],
+    R_pad: int,
+    C_pad: int,
+    device: torch.device,
+) -> Block:
+    """The chunk's tasks padded into one float64 ``(probs (B, R_pad,
+    C_pad), counts (B, R_pad), col_masks (B, C_pad))`` block on
+    ``device`` (``build_block`` of ``rpvg_tpu/infer/batching.py:336-346``):
+    padded rows get zero counts, padded columns a zero mask."""
+    B = len(chunk)
+    probs_pad = np.zeros((B, R_pad, C_pad), dtype=np.float64)
+    counts_pad = np.zeros((B, R_pad), dtype=np.float64)
+    col_masks = np.zeros((B, C_pad), dtype=np.float64)
+    for b, idx in enumerate(chunk):
+        probs, counts = cluster_inputs[idx]
+        R, C = probs.shape
+        probs_pad[b, :R, :C] = probs
+        counts_pad[b, :R] = counts
+        col_masks[b, :C] = 1.0
+    return tuple(torch.from_numpy(a).to(device) for a in (probs_pad, counts_pad, col_masks))
+
+
+def dispatch_em_device(
+    cluster_inputs: Sequence[Tuple[np.ndarray, np.ndarray]],
+    indices: Sequence[int],
+    max_em_its: int,
+    max_rel_em_conv: float,
+    device: torch.device,
+    max_bucket_rows: int = 4096,
+) -> List[Tuple[List[int], torch.Tensor]]:
+    """Launch the indexed tasks' EM on ``device`` without waiting: one
+    :func:`em_fused_cuda.em_fixed_point_padded` call per group of
+    :func:`plan_em_groups`, each group's blocks built right before its
+    launch.  Returns (chunk indices, (B, C) fractions) per chunk for
+    :func:`gather_em_device`."""
+    pending = []
+    for group in plan_em_groups(cluster_inputs, indices, max_bucket_rows):
+        blocks = [
+            build_block(cluster_inputs, chunk, R_pad, C_pad, device)
+            for chunk, R_pad, C_pad in group
+        ]
+        fracs, _ = em_fused_cuda.em_fixed_point_padded(blocks, max_em_its, max_rel_em_conv)
+        pending.extend((chunk, block_fracs) for (chunk, _, _), block_fracs in zip(group, fracs))
+    return pending
+
+
+def gather_em_device(pending, cluster_inputs, results) -> None:
+    """Wait for the pending chunks and fill ``results`` with the (path
+    read counts, noise count) contract (sub-threshold folding in f64 on
+    the host, exactly like the native kernel's tail)."""
+    for chunk, fracs in pending:
+        fracs = fracs.cpu().numpy()
+        for b, idx in enumerate(chunk):
+            probs, counts = cluster_inputs[idx]
+            R, C = probs.shape
+            total = float(counts.sum())
+            results[idx] = em_postprocess(fracs[b, :C], total)

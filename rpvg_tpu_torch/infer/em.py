@@ -1,11 +1,11 @@
 """Batched EM fixed point in plain PyTorch (counterpart of
 ``rpvg_tpu/infer/em.py``).
 
-This is the plain version of the CUDA kernel ``csrc/em_fixed_point.cu``:
-the same q-formulation, the same per-cluster freeze after
-``MIN_EM_CONV_ITS`` converged iterations and the same 1e-8 activity gate,
-over a padded (B, R, C) stack.  CPU tensors run through it on the main
-path; on the card it is the specification the kernel is compared with.
+This is the plain version of the CUDA kernels ``csrc/em_fixed_point.cu``
+and ``csrc/em_fused.cu``: the same q-formulation, the same per-cluster
+freeze after ``MIN_EM_CONV_ITS`` converged iterations and the same 1e-8
+activity gate, over a padded (B, R, C) stack.  CPU tensors run through it on the main
+path; on the card it is the specification the kernels are compared with.
 
 Convergence contract (reference path_abundance_estimator.cpp:47-114):
 every unmasked abundance >= 1e-8 must move relatively by at most

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -94,6 +94,20 @@ def _kernel_fn():
     return _fn
 
 
+def shared_memory_bytes(kernel: str, max_rows: int, max_cols: int) -> int:
+    """Dynamic shared memory of one launch of ``kernel`` (either EM
+    kernel: a, a', the reduction buffer and q up to ``_Q_SMEM_ROWS``
+    rows) over tasks of at most ``max_rows`` rows and ``max_cols``
+    columns; raises ValueError past what one thread block can have."""
+    smem_bytes = 8 * (2 * max_cols + _THREADS + min(max_rows, _Q_SMEM_ROWS))
+    if smem_bytes > _MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{kernel}: a task with {max_cols} columns needs "
+            f"{smem_bytes} bytes of shared memory (limit {_MAX_SMEM_BYTES})"
+        )
+    return smem_bytes
+
+
 def _check_inputs(tasks: RaggedTasks) -> None:
     device = tasks.device
     for name in ("probs", "counts"):
@@ -119,12 +133,7 @@ def _launch(tasks: RaggedTasks, max_em_its: int, max_rel_em_conv: float):
     if n == 0:
         return fracs, iters
     q_rows = min(tasks.max_rows, _Q_SMEM_ROWS)
-    smem_bytes = 8 * (2 * tasks.max_cols + _THREADS + q_rows)
-    if smem_bytes > _MAX_SMEM_BYTES:
-        raise ValueError(
-            f"em_fixed_point: a task with {tasks.max_cols} columns needs "
-            f"{smem_bytes} bytes of shared memory (limit {_MAX_SMEM_BYTES})"
-        )
+    smem_bytes = shared_memory_bytes(KERNEL_NAME, tasks.max_rows, tasks.max_cols)
     total_rows = int(tasks.row_offsets[-1])
     q_scratch = torch.empty(
         total_rows if tasks.max_rows > q_rows else 1, dtype=torch.float64, device=device
@@ -149,22 +158,6 @@ def _launch(tasks: RaggedTasks, max_em_its: int, max_rel_em_conv: float):
 # ------------------------------------------------------------ plain version
 
 
-def _ceil_pow2(n: int, floor: int = 8) -> int:
-    size = floor
-    while size < n:
-        size *= 2
-    return size
-
-
-def _ceil_pow4(n: int, floor: int = 8) -> int:
-    """Coarser (4x-step) bucketing for the row axis: fewer compiled
-    shapes at the cost of more padded compute."""
-    size = floor
-    while size < n:
-        size *= 4
-    return size
-
-
 def em_fixed_point_plain(
     tasks: RaggedTasks,
     max_em_its: int,
@@ -173,10 +166,10 @@ def em_fixed_point_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's contract in plain PyTorch, on the tasks' device.
 
-    Tasks are padded into the JAX package's buckets (rows to powers of
-    four, columns to powers of two, ``infer/batching.py:303-334``),
-    chunked to bound memory, and solved by the batched fixed point of
-    :mod:`rpvg_tpu_torch.infer.em`.  Padded rows carry zero counts,
+    Tasks are padded into the JAX package's buckets and chunks
+    (:func:`rpvg_tpu_torch.infer.batching.plan_chunks`) and solved by
+    the batched fixed point of :mod:`rpvg_tpu_torch.infer.em`.  Padded
+    rows carry zero counts,
     padded columns a zero mask; each cluster freezes on its own, so the
     result does not depend on how tasks are batched."""
     device = tasks.device
@@ -189,43 +182,40 @@ def em_fixed_point_plain(
     fracs = torch.zeros(int(col_off[-1]) if n else 0, dtype=torch.float64, device=device)
     iters = torch.zeros(n, dtype=torch.int64, device=device)
 
-    buckets: Dict[Tuple[int, int], List[int]] = {}
-    for i in range(n):
-        key = (_ceil_pow4(int(n_rows[i])), _ceil_pow2(int(n_cols[i])))
-        buckets.setdefault(key, []).append(i)
+    # Imported here: batching imports this module.
+    from rpvg_tpu_torch.infer.batching import plan_chunks
 
-    for (R_pad, C_pad), members in buckets.items():
-        max_batch = max(1, max_bucket_rows // R_pad) * 8
-        for start in range(0, len(members), max_batch):
-            idx = np.asarray(members[start : start + max_batch], dtype=np.int64)
-            rows, cols = n_rows[idx], n_cols[idx]
-            r = np.arange(R_pad, dtype=np.int64)
-            c = np.arange(C_pad, dtype=np.int64)
-            row_ok = r[None, :] < rows[:, None]                       # (B, R_pad)
-            col_ok = c[None, :] < cols[:, None]                       # (B, C_pad)
-            cell_ok = row_ok[:, :, None] & col_ok[:, None, :]
-            cell_pos = np.where(
-                cell_ok,
-                mat_off[idx, None, None] + r[None, :, None] * cols[:, None, None]
-                + c[None, None, :],
-                0,
-            )
-            row_pos = np.where(row_ok, row_off[idx, None] + r[None, :], 0)
+    shapes = list(zip(n_rows.tolist(), n_cols.tolist()))
+    for members, R_pad, C_pad in plan_chunks(shapes, range(n), max_bucket_rows):
+        idx = np.asarray(members, dtype=np.int64)
+        rows, cols = n_rows[idx], n_cols[idx]
+        r = np.arange(R_pad, dtype=np.int64)
+        c = np.arange(C_pad, dtype=np.int64)
+        row_ok = r[None, :] < rows[:, None]                       # (B, R_pad)
+        col_ok = c[None, :] < cols[:, None]                       # (B, C_pad)
+        cell_ok = row_ok[:, :, None] & col_ok[:, None, :]
+        cell_pos = np.where(
+            cell_ok,
+            mat_off[idx, None, None] + r[None, :, None] * cols[:, None, None]
+            + c[None, None, :],
+            0,
+        )
+        row_pos = np.where(row_ok, row_off[idx, None] + r[None, :], 0)
 
-            cell_ok_t = torch.from_numpy(cell_ok).to(device)
-            row_ok_t = torch.from_numpy(row_ok).to(device)
-            col_ok_t = torch.from_numpy(col_ok).to(device)
-            probs = torch.where(
-                cell_ok_t, tasks.probs[torch.from_numpy(cell_pos).to(device)], 0.0
-            )
-            counts = torch.where(
-                row_ok_t, tasks.counts[torch.from_numpy(row_pos).to(device)], 0.0
-            )
-            col_masks = col_ok_t.to(torch.float64)
-            block_fracs, _, block_iters = _em_solve_batched(
-                probs, counts, col_masks, max_em_its, max_rel_em_conv
-            )
-            out_pos = torch.from_numpy(col_off[idx, None] + c[None, :]).to(device)
-            fracs[out_pos[col_ok_t]] = block_fracs[col_ok_t]
-            iters[torch.from_numpy(idx).to(device)] = block_iters
+        cell_ok_t = torch.from_numpy(cell_ok).to(device)
+        row_ok_t = torch.from_numpy(row_ok).to(device)
+        col_ok_t = torch.from_numpy(col_ok).to(device)
+        probs = torch.where(
+            cell_ok_t, tasks.probs[torch.from_numpy(cell_pos).to(device)], 0.0
+        )
+        counts = torch.where(
+            row_ok_t, tasks.counts[torch.from_numpy(row_pos).to(device)], 0.0
+        )
+        col_masks = col_ok_t.to(torch.float64)
+        block_fracs, _, block_iters = _em_solve_batched(
+            probs, counts, col_masks, max_em_its, max_rel_em_conv
+        )
+        out_pos = torch.from_numpy(col_off[idx, None] + c[None, :]).to(device)
+        fracs[out_pos[col_ok_t]] = block_fracs[col_ok_t]
+        iters[torch.from_numpy(idx).to(device)] = block_iters
     return fracs, iters

@@ -8,10 +8,11 @@ are copied, not imported, because ``rpvg_tpu.pipeline`` imports jax.
 
 Only :func:`run_pipeline` and :func:`run_inference_phases` are
 rewritten: the device is passed down explicitly, and there is no
-backend probe, watchdog or ``jax.profiler`` hook.  The one inference
-configuration ported is ``haplotype-transcripts`` at ploidy 2 with
-collapsed groups and no Gibbs sampling; :func:`unported_reason` names
-the ROADMAP item of every other.
+backend probe, watchdog or ``jax.profiler`` hook.  All four inference
+models are ported without Gibbs sampling, ``haplotypes`` and
+``haplotype-transcripts`` at ploidy 2 (the latter with collapsed
+groups); :func:`unported_reason` names the ROADMAP item of every other
+configuration.
 """
 
 from __future__ import annotations
@@ -36,25 +37,28 @@ from rpvg_tpu.io.info import parse_haplotype_transcript_info
 from rpvg_tpu.pathindex import PathIndex
 from rpvg_tpu.probabilities import PathInfo, ReadPathProbs
 from rpvg_tpu.projection import AlignmentPath, AlignmentPathFinder
-from rpvg_tpu_torch.infer.batched_models import batched_haplotype_transcripts
-from rpvg_tpu_torch.infer.estimators import NOT_PORTED_MODELS, make_estimator
+from rpvg_tpu_torch.infer.batched_models import (
+    batched_haplotype_transcripts,
+    batched_haplotypes,
+    batched_strains,
+    batched_transcripts,
+    supports_batched_nested,
+    supports_batched_strains,
+    supports_batched_transcripts,
+)
+from rpvg_tpu_torch.infer.estimators import make_estimator
 
 
 def unported_reason(config: "PipelineConfig", multiprocess: int = 0) -> Optional[str]:
     """Why ``config`` cannot run on the port yet (naming the ROADMAP
-    queue-1 item that ports it), or None for the ported configuration."""
-    if config.inference_model in NOT_PORTED_MODELS:
-        return (
-            f"-i {config.inference_model} is not yet ported "
-            f"(ROADMAP queue 1, item {NOT_PORTED_MODELS[config.inference_model]})"
-        )
+    queue-1 item that ports it), or None for a ported configuration."""
     if config.num_gibbs_samples > 0:
         return "-n/--num-gibbs-samples > 0 is not yet ported (ROADMAP queue 1, item 12)"
     if config.use_hap_gibbs:
         return "--use-hap-gibbs is not yet ported (ROADMAP queue 1, item 13)"
     if config.ind_hap_inference:
         return "--ind-hap-inference is not yet ported (ROADMAP queue 1, item 14)"
-    if config.ploidy != 2:
+    if config.ploidy != 2 and config.inference_model in ("haplotypes", "haplotype-transcripts"):
         return f"-y/--ploidy {config.ploidy} is not yet ported (ROADMAP queue 1, item 10)"
     if multiprocess > 1:
         return "--multiprocess > 1 is not yet ported (ROADMAP queue 1, item 16)"
@@ -1126,8 +1130,7 @@ def run_inference_phases(
                 f"shape: {frag_length_dist.shape:.4f})"
             )
 
-    # Transcript-name collapsing belongs to the transcripts model only.
-    collapse_haps = False
+    collapse_haps = config.inference_model == "transcripts" and config.path_info is not None
 
     frag_log_probs = frag_length_dist.log_prob_array(pre_frag_length_dist.max_length)
     all_lengths = paths_index.all_path_lengths()
@@ -1165,7 +1168,7 @@ def run_inference_phases(
 
     if cols is not None:
         clusters = PathClusters.from_columnar(paths_index, cols)
-        if config.path_node_cluster:
+        if config.path_node_cluster or collapse_haps:
             clusters.add_node_clusters(paths_index)
         # Partition entries by their anchor's cluster with one stable
         # argsort (within-cluster order = dump order).
@@ -1187,7 +1190,7 @@ def run_inference_phases(
                 ap.search for fl in fragment_lists for ap in fl[0]
             )
         clusters = PathClusters(paths_index, [fl[0] for fl in fragment_lists])
-        if config.path_node_cluster:
+        if config.path_node_cluster or collapse_haps:
             clusters.add_node_clusters(paths_index)
         per_cluster = partition_fragments(paths_index, clusters, fragment_lists)
         all_sizes = np.fromiter(
@@ -1202,7 +1205,7 @@ def run_inference_phases(
             if info_future is not None
             else parse_haplotype_transcript_info(
                 config.path_info,
-                parse_haplotype_ids=True,
+                parse_haplotype_ids=config.inference_model == "haplotype-transcripts",
                 use_transcript_names=collapse_haps,
             )
         )
@@ -1291,7 +1294,14 @@ def run_inference_phases(
             estimates.paths = paths
             batch_data.append((estimates, cluster_probs))
             results.append(ClusterResult(rank + 1, estimates))
-        inference = batched_haplotype_transcripts(estimator, batch_data, device)
+        if supports_batched_nested(estimator):
+            inference = batched_haplotype_transcripts(estimator, batch_data, device)
+        elif supports_batched_strains(estimator):
+            inference = batched_strains(estimator, batch_data, device)
+        elif supports_batched_transcripts(estimator):
+            inference = batched_transcripts(estimator, batch_data, device)
+        else:
+            inference = batched_haplotypes(estimator, batch_data, device)
 
         if prob_writer is not None and prob_texts is None:
             for _, (paths, cluster_probs) in cluster_data:
@@ -1299,7 +1309,8 @@ def run_inference_phases(
             prob_writer.close_async()
 
         log(
-            "Inferred path posterior probabilities and abundances "
+            f"Inferred path posterior probabilities"
+            f"{' and abundances' if config.inference_model != 'haplotypes' else ''} "
             f"({time.perf_counter() - t_phase:.2f}s, {_mem_gb():.2f}GB)"
         )
 

@@ -1,5 +1,6 @@
 """Seeded EM task sets shaped like the main path's phase D, for holding
-the EM kernel against its plain version (tests and ``chip_smoke.py``).
+the EM kernels against their plain versions (tests and
+``chip_smoke.py``).
 
 Each task is a noise-normalised matrix (R, C) whose last column is the
 noise probability, with integral read counts (R,), as phase C emits
@@ -57,3 +58,26 @@ def em_task_set(n_tasks: int, seed: int) -> List[Task]:
         C = int(np.clip(round(np.exp(rng.normal(np.log(9.0), 0.6))), 2, MAX_COLS))
         tasks.append(random_task(rng, R, C))
     return tasks + edge_case_tasks(rng)
+
+
+Block = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+
+def padded_block_set(seed: int) -> List[Block]:
+    """Four differently shaped float64 ``(probs (B, R, C), counts (B, R),
+    col_masks (B, C))`` blocks of random tasks padded with zeros, ragged
+    in rows and columns inside each block; the first block's last slot
+    is an all-zero dummy."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for k, (B, R, C) in enumerate(((3, 8, 8), (5, 32, 16), (2, 128, 8), (4, 8, 32))):
+        probs = np.zeros((B, R, C))
+        counts = np.zeros((B, R))
+        masks = np.zeros((B, C))
+        for b in range(B - 1 if k == 0 else B):
+            n_rows = int(rng.integers(1, R + 1))
+            n_cols = int(rng.integers(1, C + 1))
+            probs[b, :n_rows, :n_cols], counts[b, :n_rows] = random_task(rng, n_rows, n_cols)
+            masks[b, :n_cols] = 1.0
+        blocks.append((probs, counts, masks))
+    return blocks

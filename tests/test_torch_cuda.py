@@ -1,5 +1,5 @@
-"""The CUDA EM kernel against its plain PyTorch version, and the slice's
-device half on the card.  Every test here needs a CUDA device: they are
+"""The CUDA EM kernels against their plain PyTorch versions, and the
+models' device halves on the card.  Every test here needs a CUDA device: they are
 marked ``gpu`` and skip on a host without one.  The module imports no
 jax (the card's host has none), so on the card it runs without the
 suite's conftest:
@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from rpvg_tpu_torch.infer import posteriors
+from rpvg_tpu_torch.infer import batching, posteriors
 from rpvg_tpu_torch.infer.batching import fold_fractions, pack_ragged, run_batched_em
-from rpvg_tpu_torch.ops import em_cuda
-from rpvg_tpu_torch.testing import em_task_set, random_task
+from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
+from rpvg_tpu_torch.testing import em_task_set, padded_block_set, random_task
 
 pytestmark = pytest.mark.gpu
 
@@ -96,3 +96,117 @@ def test_kernel_wide_and_tall_tasks_match_plain(cuda):
         rtol=1e-6, atol=1e-9,
     )
     assert torch.equal(k_iters.cpu(), p_iters.cpu())
+
+
+# ------------------------------------------------ the multi-bucket kernel
+
+
+def _fused_groups(task_list, device, monkeypatch):
+    """The fused launch groups ``dispatch_em_device`` plans for the
+    tasks, as (chunks, blocks on ``device``) per launch."""
+    monkeypatch.setenv("RPVG_TPU_FUSE_EM", "1")
+    groups = batching.plan_em_groups(task_list, range(len(task_list)))
+    return [
+        (
+            [chunk for chunk, _, _ in group],
+            [batching.build_block(task_list, *plan, device) for plan in group],
+        )
+        for group in groups
+    ]
+
+
+def _folded_groups(groups, fracs_per_group, task_list):
+    results = [None] * len(task_list)
+    for (chunks, _), fracs in zip(groups, fracs_per_group):
+        batching.gather_em_device(list(zip(chunks, fracs)), task_list, results)
+    return np.concatenate([np.append(*r) for r in results])
+
+
+@pytest.mark.parametrize("max_its", [10000, 50])
+def test_fused_kernel_matches_plain(cuda, max_its, monkeypatch):
+    task_list = em_task_set(512, seed=36)
+    groups = _fused_groups(task_list, cuda, monkeypatch)
+    assert any(len(blocks) >= 2 for _, blocks in groups)
+    kernel, plain = [], []
+    for _, blocks in groups:
+        k_fracs, k_iters = em_fused_cuda.em_fixed_point_padded(blocks, max_its, 1e-3)
+        p_fracs, p_iters = em_fused_cuda.em_fixed_point_padded_plain(blocks, max_its, 1e-3)
+        kernel.append(k_fracs)
+        plain.append(p_fracs)
+        assert torch.equal(torch.cat(k_iters).cpu(), torch.cat(p_iters).cpu())
+    np.testing.assert_allclose(
+        _folded_groups(groups, kernel, task_list), _folded_groups(groups, plain, task_list),
+        rtol=1e-6, atol=1e-9,
+    )
+
+
+def test_fused_kernel_is_deterministic(cuda, monkeypatch):
+    groups = _fused_groups(em_task_set(256, seed=37), cuda, monkeypatch)
+    for _, blocks in groups:
+        first, _ = em_fused_cuda.em_fixed_point_padded(blocks, 10000, 1e-3)
+        second, _ = em_fused_cuda.em_fixed_point_padded(blocks, 10000, 1e-3)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_fused_kernel_one_launch_over_shaped_blocks_with_dummy(cuda):
+    blocks = [tuple(torch.from_numpy(a).to(cuda) for a in b) for b in padded_block_set(38)]
+    launches, n_blocks, tasks = em_fused_cuda.LAUNCHES, em_fused_cuda.BLOCKS, em_fused_cuda.TASKS
+    k_fracs, k_iters = em_fused_cuda.em_fixed_point_padded(blocks, 10000, 1e-3)
+    assert em_fused_cuda.LAUNCHES == launches + 1
+    assert em_fused_cuda.BLOCKS == n_blocks + len(blocks)
+    assert em_fused_cuda.TASKS == tasks + sum(b[0].shape[0] for b in blocks)
+    p_fracs, p_iters = em_fused_cuda.em_fixed_point_padded_plain(blocks, 10000, 1e-3)
+    for k, p, ki, pi in zip(k_fracs, p_fracs, k_iters, p_iters):
+        np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(), rtol=1e-6, atol=1e-9)
+        assert torch.equal(ki.cpu(), pi.cpu())
+    assert not k_fracs[0][-1].any() and int(k_iters[0][-1]) == 10
+
+
+def test_fused_kernel_tall_and_wide_blocks_match_plain_and_ragged(cuda, monkeypatch):
+    """A block of R_pad 8192 (q in global scratch) and one of C_pad 256
+    (more columns than threads: unsliced column sums), in one launch;
+    each task also against the ragged kernel."""
+    rng = np.random.default_rng(39)
+    task_list = [random_task(rng, R, C) for R, C in [(3000, 5), (2500, 7), (40, 200), (90, 150)]]
+    groups = _fused_groups(task_list, cuda, monkeypatch)
+    assert [[(b[0].shape[1], b[0].shape[2]) for b in blocks] for _, blocks in groups] == [
+        [(8192, 8), (128, 256)]
+    ]
+    kernel, plain = [], []
+    for _, blocks in groups:
+        k_fracs, k_iters = em_fused_cuda.em_fixed_point_padded(blocks, 10000, 1e-3)
+        p_fracs, p_iters = em_fused_cuda.em_fixed_point_padded_plain(blocks, 10000, 1e-3)
+        assert torch.equal(torch.cat(k_iters).cpu(), torch.cat(p_iters).cpu())
+        kernel.append(k_fracs)
+        plain.append(p_fracs)
+    fused = _folded_groups(groups, kernel, task_list)
+    np.testing.assert_allclose(fused, _folded_groups(groups, plain, task_list), rtol=1e-6, atol=1e-9)
+    tasks = pack_ragged(task_list, cuda)
+    r_fracs, _ = em_cuda.em_fixed_point(tasks, 10000, 1e-3)
+    np.testing.assert_allclose(fused, _folded(r_fracs, tasks, task_list), rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("fuse", ["0", "1"])
+def test_transcripts_slice_on_cuda_matches_cpu(cuda, fuse, tmp_path, monkeypatch):
+    import os
+
+    from rpvg_tpu_torch import cli
+    from rpvg_tpu_torch.compare import compare_estimate_files
+    from test_golden import make_dataset
+
+    monkeypatch.setenv("RPVG_TPU_FUSE_EM", fuse)
+    panel, aln, _ = make_dataset(str(tmp_path))
+    graph, paths = str(tmp_path / "graph.json"), str(tmp_path / "panel.json")
+    panel.write_graph_json(graph)
+    panel.write_panel_json(paths)
+    launches = em_fused_cuda.LAUNCHES if fuse == "1" else em_cuda.LAUNCHES
+    for backend in ("cuda", "cpu"):
+        argv = ["-g", graph, "-p", paths, "-a", aln, "-o", str(tmp_path / backend),
+                "-i", "transcripts", "-r", "99", "--score-not-qual", "--backend", backend]
+        assert cli.main(argv) == 0
+    after = em_fused_cuda.LAUNCHES if fuse == "1" else em_cuda.LAUNCHES
+    assert after > launches
+    report = compare_estimate_files(
+        os.path.join(tmp_path, "cuda.txt"), os.path.join(tmp_path, "cpu.txt"), 1e-6, 1e-6
+    )
+    assert report["rows"] > 0

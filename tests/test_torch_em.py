@@ -14,6 +14,8 @@ from rpvg_tpu_torch.infer import batching, em
 from rpvg_tpu_torch.ops import em_cuda
 from rpvg_tpu_torch.testing import edge_case_tasks, em_task_set
 
+from test_torch_slice import one_torch_thread  # noqa: F401
+
 CPU = torch.device("cpu")
 
 

@@ -9,6 +9,8 @@ from rpvg_tpu.infer import posteriors as ref_post
 from rpvg_tpu.infer.matrices import calc_path_log_frequencies
 from rpvg_tpu_torch.infer import posteriors
 
+from test_torch_slice import one_torch_thread  # noqa: F401
+
 CPU = torch.device("cpu")
 
 

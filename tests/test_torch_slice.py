@@ -21,7 +21,6 @@ import rpvg_tpu_torch.infer.batched_models as port_batched_models
 import rpvg_tpu_torch.infer.batching as port_batching
 import rpvg_tpu_torch.infer.estimators as port_estimators
 import rpvg_tpu_torch.infer.posteriors as port_posteriors
-import rpvg_tpu_torch.ops.em_cuda as port_em_cuda
 import rpvg_tpu_torch.pipeline as port_pipeline
 from rpvg_tpu import sim
 from rpvg_tpu_torch import cli
@@ -33,6 +32,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE_DIR = os.path.join(REPO, "rpvg_tpu_torch")
 RTOL = 1e-6
 ATOL = 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread per test process.  The plain EM and
+    pair-score loops run thousands of tiny torch ops; with several test
+    workers on one host, every worker's thread pool would spin on every
+    core and slow each file down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _write_inputs(panel, tmp_dir):
@@ -142,12 +153,17 @@ VERBATIM = [
     )
 ] + [
     (port_estimators, ref_estimators, name)
-    for name in ("PathEstimator", "PathAbundanceEstimator", "NestedPathAbundanceEstimator")
+    for name in (
+        "PathEstimator", "PathPosteriorEstimator", "PathGroupPosteriorEstimator",
+        "PathAbundanceEstimator", "MinimumPathAbundanceEstimator",
+        "NestedPathAbundanceEstimator", "make_estimator",
+    )
 ] + [
-    (port_batching, ref_batching, "em_postprocess"),
-    (port_batching, ref_batching, "native_em_available"),
-    (port_em_cuda, ref_batching, "_ceil_pow2"),
-    (port_em_cuda, ref_batching, "_ceil_pow4"),
+    (port_batching, ref_batching, name)
+    for name in (
+        "em_postprocess", "native_em_available", "fuse_em_enabled", "_ceil_pow2", "_ceil_pow4",
+    )
+] + [
     (port_batched_models, ref_batched_models, "_flat_group_spec"),
 ] + [
     (port_posteriors, ref_posteriors, name)
@@ -272,9 +288,9 @@ def test_cuda_backend_without_cuda_fails(tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra,item",
     [
-        (("-i", "transcripts"), 8),
-        (("-i", "strains"), 9),
-        (("-i", "haplotypes"), 10),
+        (("-i", "transcripts", "-n", "4"), 12),
+        (("-i", "strains", "-n", "4"), 12),
+        (("-i", "haplotypes", "-y", "3"), 10),
         (("-n", "4"), 12),
         (("--use-hap-gibbs",), 13),
         (("--ind-hap-inference",), 14),

@@ -7,21 +7,26 @@ Run from the repository root with no arguments:
 
 Phases (each prints at least one line; any failure exits non-zero):
 
-0. the card (nvidia-smi name and power limit), torch, and the native host
-   library (built with g++ at first use);
+0. the card (nvidia-smi name and power limit), torch, and the port's own
+   native host library (built with g++ from rpvg_tpu_torch/csrc/host at
+   first use);
 1. build both EM kernels from rpvg_tpu_torch/csrc with nvcc for sm_90a,
    in parallel;
 2. the ragged kernel against its plain PyTorch version on the card, on a
-   seeded task set shaped like the main path's phase D;
+   seeded task set shaped like the main path's phase D; its time beside
+   its roofline bound, and its slowest task alone;
 3. the port's CLI with --backend cuda and --backend cpu for all four
    models on a small gene panel: identical rows, numbers within rtol 1e-6
    / atol 1e-6;
 4. the main path at bench scale (haplotype-transcripts, 100k read pairs
    over 1,286 genes x 7 isoforms x 4 haplotypes), with launch counters
-   reset just before and read just after;
+   reset just before and read just after; the tasks phase D hands to
+   em_cuda.em_fixed_point are captured (the script wraps that entry) and
+   the kernel is re-timed on them, held against its plain version, and
+   their slowest task timed alone;
 5. the multi-bucket kernel against its plain PyTorch version on the
    launch groups that dispatch_em_device plans for phase 2's task set,
-   and against the ragged kernel;
+   and against the ragged kernel (bitwise); its bound and slowest cluster;
 6. transcripts -f (ragged route, then RPVG_TPU_FUSE_EM=1), strains and
    haplotypes on phase 4's dataset, each with the counters reset just
    before and read just after.
@@ -43,6 +48,10 @@ RTOL = 1e-6
 ATOL_EM = 1e-9
 ATOL_OUT = 1e-6
 PAIRS = 100000
+# Roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM
+# bytes per second, and the FP64 peak (tensor cores; 34 TFLOP/s without).
+HBM_BYTES_PER_S = 3.35e12
+FP64_FLOPS = 67e12
 
 
 def log(line: str) -> None:
@@ -65,6 +74,79 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def em_bound(in_bytes, out_bytes, iterations, rows, cols):
+    """(bound ms, what bounds it) of an EM launch: each input byte read
+    and each output byte written once at the HBM rate, against this
+    run's iterations times 4 R C flops (E and M step) at the FP64 peak."""
+    import numpy as np
+
+    flops = 4.0 * float(np.sum(np.asarray(iterations, dtype=np.float64) * rows * cols))
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP64_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def ragged_bound(tasks, iters):
+    """em_bound for the ragged kernel over ``tasks`` (RaggedTasks)."""
+    n = tasks.n_tasks
+    in_bytes = 8 * (tasks.probs.numel() + tasks.counts.numel() + 3 * (n + 1) + 2 * n)
+    out_bytes = 8 * (int(tasks.col_offsets[-1]) + n)
+    rows, cols = tasks.shapes[:, 0], tasks.shapes[:, 1]
+    return em_bound(in_bytes, out_bytes, iters.cpu().numpy(), rows, cols)
+
+
+def slowest_candidates(task_list, iterations, count=3):
+    """Indices of the tasks that may set a launch's time: the ``count``
+    with the most iterations (the largest first on ties) and the
+    ``count`` with the most iterations times elements."""
+    import numpy as np
+
+    iterations = np.asarray(iterations, dtype=np.int64)
+    sizes = np.array([p.size for p, _ in task_list], dtype=np.int64)
+    by_iterations = np.lexsort((-sizes, -iterations))[:count]
+    by_work = np.argsort(-(iterations * sizes), kind="stable")[:count]
+    return sorted({int(i) for i in np.concatenate([by_iterations, by_work])})
+
+
+def ragged_alone_ms(device, task, max_its, tol=1e-3):
+    """CUDA-event milliseconds of the ragged kernel on one task alone."""
+    from rpvg_tpu_torch.infer.batching import pack_ragged
+    from rpvg_tpu_torch.ops import em_cuda
+
+    one = pack_ragged([task], device)
+    return cuda_ms(lambda: em_cuda.em_fixed_point(one, max_its, tol), reps=5)
+
+
+def slowest_task(device, task_list, iterations, max_its, tol=1e-3):
+    """(index, milliseconds alone) of the slowest of the candidates."""
+    timed = [
+        (ragged_alone_ms(device, task_list[i], max_its, tol), i)
+        for i in slowest_candidates(task_list, iterations)
+    ]
+    ms, i = max(timed)
+    return i, ms
+
+
+def per_iteration_us(device):
+    """Microseconds per iteration of the ragged kernel on one seeded task
+    alone, per shape: the time at 10,000 iterations less the time at
+    2,000, over 8,000 (a negative tolerance never converges)."""
+    import numpy as np
+
+    from rpvg_tpu_torch.infer.batching import pack_ragged
+    from rpvg_tpu_torch.ops import em_cuda
+    from rpvg_tpu_torch.testing import random_task
+
+    rng = np.random.default_rng(13)
+    out = {}
+    for shape in ((3, 9), (14, 16), (32, 32), (64, 64), (205, 41), (348, 61)):
+        one = pack_ragged([random_task(rng, *shape)], device)
+        short = cuda_ms(lambda: em_cuda.em_fixed_point(one, 2000, -1.0), reps=3)
+        long = cuda_ms(lambda: em_cuda.em_fixed_point(one, 10000, -1.0), reps=3)
+        out[shape] = (long - short) / 8000 * 1e3
+    return out
 
 
 def compare_em(kernel, plain):
@@ -121,18 +203,72 @@ def phase_kernel(torch, device):
         report[max_its] = (max_abs, max_rel)
 
     kernel_ms = cuda_ms(lambda: em_cuda.em_fixed_point(tasks, 10000, 1e-3), reps=20)
-    plain_ms = cuda_ms(lambda: em_cuda.em_fixed_point_plain(tasks, 10000, 1e-3), reps=3)
+    plain_ms = cuda_ms(lambda: em_cuda.em_fixed_point_plain(tasks, 10000, 1e-3), reps=1,
+                       warmup=False)
+    _, iters = em_cuda.em_fixed_point(tasks, 10000, 1e-3)
+    bound_ms, bound_by = ragged_bound(tasks, iters)
+    slow, alone_ms = slowest_task(device, task_list, iters.cpu().numpy(), 10000)
+    plan = em_cuda.plan_launches(tasks.shapes[:, 0], tasks.shapes[:, 1])
+    per_iteration = per_iteration_us(device)
     log(
         f"phase 2: EM at main-path shapes ({len(task_list)} tasks, "
         f"{int(tasks.probs.numel())} elements): kernel {kernel_ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms (CUDA events, mean after warm-up); kernel launches "
-        f"in this phase {em_cuda.LAUNCHES}"
+        f"{plain_ms:.3f} ms (CUDA events, mean after warm-up), bound {bound_ms:.4f} ms "
+        f"({bound_by}); slowest task {task_list[slow][0].shape} at "
+        f"{int(iters[slow])} iterations alone {alone_ms:.3f} ms; "
+        f"{len(plan)} launches per call (threads, staged, tasks): "
+        f"{[(lc.threads, lc.staged, int(lc.tasks.size)) for lc in plan]}; one task alone, "
+        f"microseconds per iteration (R x C: us): "
+        + ", ".join(f"{R} x {C}: {us:.3f}" for (R, C), us in per_iteration.items())
     )
     return {
         "max_abs_err": max(a for a, _ in report.values()),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "slowest_task_ms": alone_ms,
     }
+
+
+def phase_main_path_em(torch, device, captured):
+    """Phase 4, after the run: the ragged kernel on the tasks phase D
+    handed to em_cuda.em_fixed_point (captured by the script), re-timed
+    with CUDA events, held against its plain version, and its slowest task
+    alone."""
+    from rpvg_tpu_torch.infer.batching import fold_fractions
+    from rpvg_tpu_torch.ops import em_cuda
+
+    if len(captured) != 1:
+        raise AssertionError(f"phase D called the ragged kernel {len(captured)} times, not once")
+    tasks, max_its, tol = captured[0]
+    probs, counts = tasks.probs.cpu().numpy(), tasks.counts.cpu().numpy()
+    mat_off, row_off = tasks.mat_offsets.cpu().numpy(), tasks.row_offsets.cpu().numpy()
+    task_list = [
+        (probs[mat_off[i]:mat_off[i + 1]].reshape(R, C), counts[row_off[i]:row_off[i + 1]])
+        for i, (R, C) in enumerate(tasks.shapes.tolist())
+    ]
+    k_fracs, k_iters = em_cuda.em_fixed_point(tasks, max_its, tol)
+    kernel_ms = cuda_ms(lambda: em_cuda.em_fixed_point(tasks, max_its, tol), reps=5)
+    p_fracs, p_iters = em_cuda.em_fixed_point_plain(tasks, max_its, tol)
+    max_abs, max_rel, n_bad = compare_em(
+        fold_fractions(k_fracs, tasks, task_list), fold_fractions(p_fracs, tasks, task_list)
+    )
+    iters = k_iters.cpu().numpy()
+    off_by = int((iters != p_iters.cpu().numpy()).sum())
+    bound_ms, bound_by = ragged_bound(tasks, k_iters)
+    slow, alone_ms = slowest_task(device, task_list, iters, max_its, tol)
+    log(
+        f"phase 4: the run's phase-D tasks ({len(task_list)} tasks, max_em_its {max_its}) "
+        f"re-timed: ragged kernel {kernel_ms:.3f} ms (CUDA events), bound {bound_ms:.4f} ms "
+        f"({bound_by}); slowest task {task_list[slow][0].shape} at {int(iters[slow])} "
+        f"iterations alone {alone_ms:.3f} ms; vs plain max abs {max_abs:.3e} max rel "
+        f"{max_rel:.3e}, {n_bad} out of tolerance, {off_by} tasks with another iteration count"
+    )
+    if n_bad:
+        raise AssertionError("EM kernel disagrees with plain version on the main path's tasks")
+    return {"ms": kernel_ms, "bound_ms": bound_ms, "slowest_task_ms": alone_ms,
+            "max_abs_err": max_abs}
 
 
 def phase_fused_kernel(torch, device, ragged_ms):
@@ -208,12 +344,40 @@ def phase_fused_kernel(torch, device, ragged_ms):
     kernel_ms = cuda_ms(lambda: run(kernel, 10000), reps=20)
     plain_ms = cuda_ms(lambda: run(plain, 10000), reps=1, warmup=False)
     padded = sum(b[0].numel() for blocks in groups for b in blocks)
+
+    outs = run(kernel, 10000)
+    iters = iterations(outs)
+    extents = np.concatenate([em_fused_cuda.cluster_extents(blocks) for blocks in groups])
+    in_elems = sum(p.numel() + c.numel() + m.numel() for blocks in groups for p, c, m in blocks)
+    out_elems = sum(m.numel() for blocks in groups for _, _, m in blocks) + iters.size
+    # Descriptors (5 int64 per block) and cluster offsets (blocks + 1).
+    meta = sum(6 * len(blocks) + 1 for blocks in groups)
+    bound_ms, bound_by = em_bound(
+        8 * (in_elems + meta), 8 * out_elems, iters, extents[:, 0], extents[:, 1]
+    )
+    # The slowest cluster alone, in its own padded bucket.
+    order = [i for group in plan for chunk, _, _ in group for i in chunk]
+    timed = []
+    for k in slowest_candidates([task_list[i] for i in order], iters):
+        os.environ["RPVG_TPU_FUSE_EM"] = "1"
+        try:
+            (one,) = batching.plan_em_groups(task_list, [order[k]])
+        finally:
+            del os.environ["RPVG_TPU_FUSE_EM"]
+        blocks = [batching.build_block(task_list, *chunk_plan, device) for chunk_plan in one]
+        timed.append((cuda_ms(lambda: kernel(blocks, 10000, 1e-3), reps=5), order[k]))
+    alone_ms, slow = max(timed)
     log(
         f"phase 5: EM at main-path shapes ({len(task_list)} tasks, {padded} padded "
         f"elements): multi-bucket kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"ragged kernel (phase 2) {ragged_ms:.3f} ms (CUDA events)"
+        f"ragged kernel (phase 2) {ragged_ms:.3f} ms (CUDA events), bound "
+        f"{bound_ms:.4f} ms ({bound_by}); slowest cluster {task_list[slow][0].shape} at "
+        f"{int(iters.max())} iterations alone {alone_ms:.3f} ms"
     )
-    return {"max_abs_err": max(report.values()), "ms": kernel_ms, "plain_ms": plain_ms}
+    return {
+        "max_abs_err": max(report.values()), "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "slowest_task_ms": alone_ms,
+    }
 
 
 def write_dataset(sim, rpa, alignments, out_dir, num_genes, num_pairs, seed_panel, seed_reads):
@@ -284,7 +448,7 @@ def check_routes(model, fused, stats, counts):
     if fused:
         ok = (
             counts["fused_tasks"] == em_tasks and counts["ragged_launches"] == 0
-            and counts["fused_blocks"] > counts["fused_launches"] >= 1
+            and counts["fused_launches"] >= 1 and counts["fused_blocks"] >= 1
         )
     else:
         ok = counts["fused_launches"] == 0 and counts["ragged_tasks"] == em_tasks and (
@@ -355,12 +519,13 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}"
     )
 
-    from rpvg_tpu_torch import _host, cli
+    from rpvg_tpu_torch import alignments, cli, native, sim
     from rpvg_tpu_torch.compare import check_estimate_file, compare_estimate_files
+    from rpvg_tpu_torch.io import rpa
     from rpvg_tpu_torch.ops import build, em_cuda, em_fused_cuda
 
     t0 = time.perf_counter()
-    if _host.native.load_library() is None:
+    if native.load_library() is None:
         raise RuntimeError("the native host library did not build")
     log(f"phase 0: native host library ready in {time.perf_counter() - t0:.1f}s")
 
@@ -385,7 +550,7 @@ def main() -> int:
     threads = min(8, os.cpu_count() or 1)
     with tempfile.TemporaryDirectory(prefix="rpvg_smoke_") as work:
         # Phase 3: every model agrees with itself across devices.
-        small = write_dataset(_host.sim, _host.rpa, _host.alignments, work,
+        small = write_dataset(sim, rpa, alignments, work,
                               num_genes=60, num_pairs=5000, seed_panel=23, seed_reads=29)
         for model in ("haplotype-transcripts", "transcripts", "strains", "haplotypes"):
             info = model == "haplotype-transcripts"
@@ -408,15 +573,27 @@ def main() -> int:
 
         # Phase 4: the main path at bench scale.
         t0 = time.perf_counter()
-        bench = write_dataset(_host.sim, _host.rpa, _host.alignments, work,
+        bench = write_dataset(sim, rpa, alignments, work,
                               num_genes=1286, num_pairs=PAIRS, seed_panel=5, seed_reads=17)
         log(f"phase 4: synthesised {PAIRS} pairs over 1286 genes in "
             f"{time.perf_counter() - t0:.1f}s (set-up, not timed below)")
-        ragged_launches = 0
-        _, counts = bench_run(torch, device, cli, check_estimate_file, 4, bench,
-                              os.path.join(work, "bench"), threads, "haplotype-transcripts",
-                              info=True)
-        ragged_launches += counts["ragged_launches"]
+        # Phase D's tasks are captured by wrapping the kernel's entry here.
+        captured = []
+        launch = em_cuda.em_fixed_point
+
+        def capture(tasks, max_em_its, max_rel_em_conv):
+            captured.append((tasks, max_em_its, max_rel_em_conv))
+            return launch(tasks, max_em_its, max_rel_em_conv)
+
+        em_cuda.em_fixed_point = capture
+        try:
+            _, counts = bench_run(torch, device, cli, check_estimate_file, 4, bench,
+                                  os.path.join(work, "bench"), threads,
+                                  "haplotype-transcripts", info=True)
+        finally:
+            em_cuda.em_fixed_point = launch
+        ragged_launches = main_path_launches = counts["ragged_launches"]
+        main_em = phase_main_path_em(torch, device, captured)
 
         # Phase 5: the multi-bucket kernel.
         fused_em = phase_fused_kernel(torch, device, em["ms"])
@@ -433,6 +610,7 @@ def main() -> int:
                                   threads, model, info, fused)
             if fused:
                 fused_launches = counts["fused_launches"]
+                fused_route_tasks = counts["fused_tasks"]
             else:
                 ragged_launches += counts["ragged_launches"]
         rep = compare_estimate_files(
@@ -443,16 +621,25 @@ def main() -> int:
             f"{rep['rows']} rows, max abs {rep['max_abs_diff']:.3e}, max rel "
             f"{rep['max_rel_diff']:.3e}, byte-identical {rep['byte_identical']}")
 
-    print(json.dumps({"kernels": [
+    kernels = [
         {
             "name": em_cuda.KERNEL_NAME,
             "route": "cuda",
             "source": "rpvg_tpu_torch/csrc/em_fixed_point.cu",
             "replaces": "rpvg_tpu/ops/em_pallas.py:46",
-            "launches": ragged_launches,
-            "max_abs_err": em["max_abs_err"],
+            "launches": main_path_launches,
+            "max_abs_err": max(em["max_abs_err"], main_em["max_abs_err"]),
             "ms": em["ms"],
             "plain_ms": em["plain_ms"],
+            "bound_ms": em["bound_ms"],
+            "bound_by": em["bound_by"],
+            "library_ms": None,
+            "launches_per_main_path_run": main_path_launches,
+            "launches_all_model_runs": ragged_launches,
+            "slowest_task_ms": em["slowest_task_ms"],
+            "main_path_tasks_ms": main_em["ms"],
+            "main_path_tasks_bound_ms": main_em["bound_ms"],
+            "main_path_slowest_task_ms": main_em["slowest_task_ms"],
         },
         {
             "name": em_fused_cuda.KERNEL_NAME,
@@ -463,8 +650,15 @@ def main() -> int:
             "max_abs_err": fused_em["max_abs_err"],
             "ms": fused_em["ms"],
             "plain_ms": fused_em["plain_ms"],
+            "bound_ms": fused_em["bound_ms"],
+            "bound_by": fused_em["bound_by"],
+            "library_ms": None,
+            "launches_per_main_path_run": fused_launches,
+            "main_path_run": f"transcripts -f, RPVG_TPU_FUSE_EM=1 ({fused_route_tasks} tasks)",
+            "slowest_task_ms": fused_em["slowest_task_ms"],
         },
-    ]}))
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

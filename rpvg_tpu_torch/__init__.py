@@ -4,18 +4,23 @@ The port keeps the JAX package's module names so a reader can find each
 counterpart.  It runs all four models end to end without Gibbs sampling
 (``haplotypes`` and ``haplotype-transcripts`` at ploidy 2):
 
-* host half: the JAX package's framework-free modules (projection,
-  clustering, probability matrices, the C++ library, the writers),
-  reached through :mod:`rpvg_tpu_torch._host` only;
+* host half: the port's own copies of the JAX package's framework-free
+  modules (projection, clustering, probability matrices, the C++ library
+  in ``csrc/host``, the writers), byte for byte as they are there
+  (``tests/test_torch_host_copies.py`` pins each copy);
 * device half: diploid pair scoring as a torch op and the EM fixed
   point as hand-written CUDA kernels (``csrc/em_fixed_point.cu`` over
-  ragged tasks, ``csrc/em_fused.cu`` over padded shape buckets), each
-  with a plain PyTorch version that CPU tensors run through.
+  ragged tasks, ``csrc/em_fused.cu`` over padded shape buckets, both on
+  the per-task loop of ``csrc/em_task.cuh``), each with a plain PyTorch
+  version that CPU tensors run through.
 
 Numerics are float64 throughout (the reference contract).  The package
-imports torch and never jax.
+imports torch and never jax or ``rpvg_tpu``.
 """
 
-from . import _host  # noqa: F401  (must run before any rpvg_tpu import)
+# Keep large host buffers on the reusable heap; see hostalloc.py.
+from .hostalloc import tune_glibc_allocator as _tune_glibc_allocator
 
-__version__ = _host.__version__
+_tune_glibc_allocator()
+
+__version__ = "0.1.0"

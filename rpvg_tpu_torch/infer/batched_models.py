@@ -34,8 +34,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from rpvg_tpu.constants import HAPLOTYPES_MIN_REL_LIKELIHOOD
-from rpvg_tpu.infer.matrices import (
+from rpvg_tpu_torch.constants import HAPLOTYPES_MIN_REL_LIKELIHOOD
+from rpvg_tpu_torch.infer.matrices import (
     add_noise_and_normalize,
     cluster_matrix,
     construct_probability_matrix,

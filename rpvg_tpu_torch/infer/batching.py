@@ -26,7 +26,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from rpvg_tpu.constants import MIN_EM_ABUNDANCE
+from rpvg_tpu_torch.constants import MIN_EM_ABUNDANCE
 from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
 from rpvg_tpu_torch.ops.em_cuda import RaggedTasks
 from rpvg_tpu_torch.ops.em_fused_cuda import Block
@@ -77,7 +77,7 @@ def native_em_available() -> bool:
     if os.environ.get("RPVG_TPU_NATIVE_EM", "1") == "0":
         return False
     try:
-        from rpvg_tpu.native import load_library
+        from rpvg_tpu_torch.native import load_library
 
         return load_library() is not None
     except Exception:
@@ -121,8 +121,7 @@ def pack_ragged(
         col_offsets=to_dev(col_offsets),
         n_rows=to_dev(n_rows),
         n_cols=to_dev(n_cols),
-        max_rows=int(n_rows.max()) if n else 0,
-        max_cols=int(n_cols.max()) if n else 0,
+        shapes=np.stack([n_rows, n_cols], axis=1),
     )
 
 

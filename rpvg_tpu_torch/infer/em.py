@@ -18,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from rpvg_tpu.constants import MIN_EM_ABUNDANCE, MIN_EM_CONV_ITS
+from rpvg_tpu_torch.constants import MIN_EM_ABUNDANCE, MIN_EM_CONV_ITS
 
 # Iterations run between two host reads of the convergence state.  A
 # cluster that has converged is frozen, so iterations past the last

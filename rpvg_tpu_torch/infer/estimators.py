@@ -19,17 +19,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from rpvg_tpu.constants import HAPLOTYPES_MIN_REL_LIKELIHOOD
-from rpvg_tpu.infer.estimates import CountSamples, PathClusterEstimates
-from rpvg_tpu.infer.matrices import (
+from rpvg_tpu_torch.constants import HAPLOTYPES_MIN_REL_LIKELIHOOD
+from rpvg_tpu_torch.infer.estimates import CountSamples, PathClusterEstimates
+from rpvg_tpu_torch.infer.matrices import (
     add_noise_and_normalize,
     construct_grouped_probability_matrix,
     construct_partial_probability_matrix,
     construct_probability_matrix,
     read_collapse,
 )
-from rpvg_tpu.infer.mincover import weighted_minimum_path_cover
-from rpvg_tpu.probabilities import ReadPathProbs
+from rpvg_tpu_torch.infer.mincover import weighted_minimum_path_cover
+from rpvg_tpu_torch.probabilities import ReadPathProbs
 
 
 def _not_ported(what: str, item: int):
@@ -177,8 +177,8 @@ class MinimumPathAbundanceEstimator(PathAbundanceEstimator):
     def prepare_cover_task(self, estimates, cluster_probs) -> Optional[dict]:
         """Host half: cover selection + collapsed sub-matrix, no EM.
         Returns None when no path covers any read (empty estimates)."""
-        from rpvg_tpu.constants import double_compare
-        from rpvg_tpu.infer.matrices import DenseCluster
+        from rpvg_tpu_torch.constants import double_compare
+        from rpvg_tpu_torch.infer.matrices import DenseCluster
 
         probs, noise, counts = construct_probability_matrix(cluster_probs, len(estimates.paths))
 
@@ -347,7 +347,7 @@ class NestedPathAbundanceEstimator(PathAbundanceEstimator):
             self._infer_independent_groups(estimates, cluster_probs, rng)
 
     def _group_posterior_matrix(self, cluster_probs, groups, num_paths):
-        from rpvg_tpu.infer.matrices import cluster_matrix, native_subset_collapse
+        from rpvg_tpu_torch.infer.matrices import cluster_matrix, native_subset_collapse
 
         dense, d_noise, d_counts = cluster_matrix(cluster_probs, num_paths)
         native = native_subset_collapse(
@@ -479,7 +479,7 @@ class NestedPathAbundanceEstimator(PathAbundanceEstimator):
         row-collapsed — elementwise identical to
         construct_partial_probability_matrix but O(R * |subset|) per
         task instead of re-scanning every sparse probability record."""
-        from rpvg_tpu.infer.matrices import native_subset_collapse
+        from rpvg_tpu_torch.infer.matrices import native_subset_collapse
 
         dense, noise, counts = construct_probability_matrix(
             cluster_probs, num_paths

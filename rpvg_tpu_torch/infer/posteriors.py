@@ -21,7 +21,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from rpvg_tpu.infer.matrices import calc_path_log_frequencies
+from rpvg_tpu_torch.infer.matrices import calc_path_log_frequencies
 
 # Clusters whose pair scores were computed, by device type, since the
 # last reset (a run can show where phase B ran).
@@ -282,7 +282,7 @@ def _native_diploid_select(score_matrices, min_rel_likelihood: float):
 
     if not native_em_available():
         return None
-    from rpvg_tpu.native import load_library
+    from rpvg_tpu_torch.native import load_library
 
     lib = load_library()
     n = len(score_matrices)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` into ``rpvg_tpu_torch/build/lib<name>.so`` at first
-use, then loaded with ``ctypes``.  A library older than its source is
+use, then loaded with ``ctypes``.  A library older than its source or
+than a header in ``csrc/`` (the sources share ``em_task.cuh``) is
 rebuilt.  Nothing here runs at import time: the CPU test host has no
 ``nvcc``.
 """
@@ -51,17 +52,18 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def _source_mtime(src: str) -> float:
+    headers = [os.path.join(CSRC_DIR, n) for n in os.listdir(CSRC_DIR) if n.endswith(".cuh")]
+    return max(os.path.getmtime(path) for path in [src, *headers])
+
+
 def build_library(name: str, force: bool = False) -> Tuple[str, str]:
     """Compile ``csrc/<name>.cu`` when the library is missing, stale or
     ``force`` is set.  Returns (library path, nvcc's stderr — the
     ``-Xptxas -v`` report — or "" when nothing was built)."""
     src = source_path(name)
     out = library_path(name)
-    if (
-        not force
-        and os.path.exists(out)
-        and os.path.getmtime(out) >= os.path.getmtime(src)
-    ):
+    if not force and os.path.exists(out) and os.path.getmtime(out) >= _source_mtime(src):
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"

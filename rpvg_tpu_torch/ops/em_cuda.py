@@ -3,8 +3,12 @@
 
 Counterpart of ``rpvg_tpu/ops/em_pallas.py`` (``_em_kernel``).  The TPU
 kernel took padded (B, R, C) float32 buckets; the CUDA kernel takes the
-ragged float64 layout of :class:`RaggedTasks` directly, one thread block
-per task (see the source for its design and bound).
+ragged float64 layout of :class:`RaggedTasks` directly.  Each task runs
+as a team sized to it (a warp, or a block of 128 to 1,024 threads) with
+its P staged in shared memory where it fits; :func:`plan_launches`
+groups the tasks into one launch per team size, and the multi-bucket
+kernel (``em_fused_cuda``) uses the same plan (see ``csrc/em_task.cuh``
+for the loop's design and bound).
 
 :func:`em_fixed_point` dispatches on the device of the tensors it is
 given: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
@@ -15,8 +19,9 @@ on any device, so the kernel can be held against it on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,15 +31,24 @@ from rpvg_tpu_torch.ops import build
 
 # Kernel launches, and tasks they covered, since the last reset (a run
 # can show that the main path went through the kernel).  Only a kernel
-# launch adds to them.
+# launch adds to them; one call may make several launches (one per team
+# size), and each task is in exactly one.
 LAUNCHES = 0
 TASKS = 0
 
 KERNEL_NAME = "em_fixed_point"
-_THREADS = 128
-# Tasks with at most this many rows keep q in shared memory.
-_Q_SMEM_ROWS = 2048
-_MAX_SMEM_BYTES = 227 * 1024
+# Shared memory one block may have on an H100 (227 KB).
+SMEM_LIMIT = 232_448
+# Tasks of at most this many elements run as one warp each, this many
+# warps (tasks) per block (em_task.cuh kWarpsPerBlock).
+WARP_TEAM_ELEMENTS = 256
+WARPS_PER_BLOCK = 4
+# Block teams: (most elements, threads), then 1,024 threads.  Chosen from
+# per-iteration times on an H100 at shapes from 20 x 11 to 348 x 61: a
+# task's time per iteration falls with more threads up to about 8 to 16
+# elements per thread, then rises with the cost of the block's barriers.
+_BLOCK_TEAMS = ((1024, 128), (2048, 256), (12288, 512))
+_RED_DOUBLES = 32  # em_task.cuh kRedDoubles
 _fn = None
 
 
@@ -45,7 +59,8 @@ class RaggedTasks:
     row-major (n_rows[i], n_cols[i]), its counts
     ``counts[row_offsets[i]:row_offsets[i+1]]``, its output columns
     ``col_offsets[i]:col_offsets[i+1]``.  Tensors are on one device;
-    ``max_rows``/``max_cols`` are host ints for launch sizing."""
+    ``shapes`` is the (n, 2) host array of (n_rows, n_cols) that the
+    launch planner reads."""
 
     probs: torch.Tensor        # float64 (sum R_i * C_i,)
     counts: torch.Tensor       # float64 (sum R_i,)
@@ -54,8 +69,7 @@ class RaggedTasks:
     col_offsets: torch.Tensor  # int64 (n + 1,)
     n_rows: torch.Tensor       # int64 (n,)
     n_cols: torch.Tensor       # int64 (n,)
-    max_rows: int
-    max_cols: int
+    shapes: np.ndarray         # int64 (n, 2), on the host
 
     @property
     def n_tasks(self) -> int:
@@ -85,27 +99,154 @@ def _kernel_fn():
         fn = build.load_library(KERNEL_NAME).rpvg_em_fixed_point_f64
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 7
-            + [ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_int64]
-            + [ctypes.c_void_p] * 3
-            + [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+            [ctypes.c_void_p] * 9
+            + [ctypes.c_int64] * 5 + [ctypes.c_double]
+            + [ctypes.c_void_p] * 4
         )
         _fn = fn
     return _fn
 
 
-def shared_memory_bytes(kernel: str, max_rows: int, max_cols: int) -> int:
-    """Dynamic shared memory of one launch of ``kernel`` (either EM
-    kernel: a, a', the reduction buffer and q up to ``_Q_SMEM_ROWS``
-    rows) over tasks of at most ``max_rows`` rows and ``max_cols``
-    columns; raises ValueError past what one thread block can have."""
-    smem_bytes = 8 * (2 * max_cols + _THREADS + min(max_rows, _Q_SMEM_ROWS))
-    if smem_bytes > _MAX_SMEM_BYTES:
+# ------------------------------------------------------------ launch plan
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One kernel launch: the tasks (indices into the caller's task list)
+    that run as teams of ``threads`` threads (32: one warp per task,
+    ``WARPS_PER_BLOCK`` per block), staged in shared memory or not, and
+    the dynamic shared memory of one block."""
+
+    threads: int
+    staged: bool
+    tasks: np.ndarray  # int64
+    smem_bytes: int
+
+
+def team_threads(rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """Threads per task, from its (R, C) alone: one warp up to
+    ``WARP_TEAM_ELEMENTS`` elements, then a block of 128 to 1,024
+    (``_BLOCK_TEAMS``)."""
+    elements = np.asarray(rows, dtype=np.int64) * np.asarray(cols, dtype=np.int64)
+    threads = np.full(elements.shape, 1024, dtype=np.int64)
+    for most, team in reversed(_BLOCK_TEAMS):
+        threads[elements <= most] = team
+    threads[elements <= WARP_TEAM_ELEMENTS] = 32
+    return threads
+
+
+_WIDTHS = (1, 2, 4, 8, 16, 32)
+# The cost, in cycles, of one more term in a lane's serial sum and of one
+# level of the shuffle butterfly, in the model that picks lanes per sum:
+# fit on an H100 to the fastest layouts of main-path shapes from 14 x 16
+# to 348 x 61 (a term costs about a shared-memory load's latency, a level
+# a double shuffle, an add and the issue slots of the warps around it).
+_TERM_CYCLES = 33
+_LEVEL_CYCLES = 152
+
+
+def _bank_free_stride(C: int, row_lanes: int, col_lanes: int) -> Optional[int]:
+    """The least row stride >= C at which, within each half-warp (16
+    doubles, one per bank pair), the E step's groups of ``row_lanes``
+    lanes (one row each, consecutive columns) and the M step's groups of
+    ``col_lanes`` lanes (one column each, consecutive rows) all read
+    distinct banks; None where no stride serves both."""
+    for S in range(max(C, 1), max(C, 1) + 32):
+        if row_lanes <= 8 and S % (2 * row_lanes) != row_lanes:
+            continue
+        if 2 <= col_lanes <= 16 and S % (32 // col_lanes) != 16 // col_lanes:
+            continue
+        if col_lanes == 32 and S % 2 != 1:
+            continue
+        return S
+    return None
+
+
+def _chain_cycles(outputs: int, terms: int, lanes: int, threads: int) -> int:
+    passes = -(-outputs // (threads // lanes))
+    return passes * (-(-terms // lanes) * _TERM_CYCLES + (lanes.bit_length() - 1) * _LEVEL_CYCLES)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(R: int, C: int, threads: int) -> Tuple[int, int, int]:
+    best = None
+    for w in _WIDTHS:
+        for h in _WIDTHS:
+            S = _bank_free_stride(C, w, h)
+            if S is None:
+                continue
+            key = (_chain_cycles(R, C, w, threads) + _chain_cycles(C, R, h, threads), w, h)
+            if best is None or key < best[0]:
+                best = (key, (w, h, S))
+    return best[1]
+
+
+def sum_layouts(rows, cols) -> np.ndarray:
+    """(n, 3) int32 em_task.cuh Layout per task, from its (R, C) alone:
+    lanes per row in the E step, lanes per column in the M step (the
+    pair of powers of two with the shortest chain by the model among
+    those with a bank-conflict-free stride), and that row stride of P in
+    shared memory."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    cols = np.asarray(cols, dtype=np.int64).reshape(-1)
+    keys, inverse = np.unique(rows * 2**32 + cols, return_inverse=True)
+    R, C = keys // 2**32, keys % 2**32
+    unique = np.array(
+        [_layout(*key) for key in zip(R.tolist(), C.tolist(), team_threads(R, C).tolist())],
+        dtype=np.int32,
+    ).reshape(-1, 3)
+    return unique[inverse.reshape(-1)]
+
+
+def staged_doubles(rows, cols):
+    """Shared memory of a task with P staged (em_task.cuh): the team's
+    scratch, a, a', counts, q and P at the layout's row stride."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    cols = np.asarray(cols, dtype=np.int64).reshape(-1)
+    stride = sum_layouts(rows, cols)[:, 2].astype(np.int64)
+    return _RED_DOUBLES + 2 * cols + 2 * rows + rows * stride
+
+
+def global_doubles(cols):
+    """Shared memory of a task whose P, counts and q stay in global
+    memory: the team's scratch, a and a'."""
+    return _RED_DOUBLES + 2 * np.asarray(cols, dtype=np.int64)
+
+
+def plan_launches(rows, cols, kernel: str = KERNEL_NAME, strides=None) -> List[Launch]:
+    """The launches that cover every task once: one per (team size,
+    staged) in order of team size, largest first.  A task's team and
+    whether its P is staged depend on its (R, C) alone; a warp team is
+    always staged.  Raises ValueError for a task whose a and a' do not
+    fit one block's shared memory, or whose P (at its row stride in
+    memory, ``strides``, by default C) has 2^31 or more elements."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    cols = np.asarray(cols, dtype=np.int64).reshape(-1)
+    strides = cols if strides is None else np.asarray(strides, dtype=np.int64).reshape(-1)
+    threads = team_threads(rows, cols)
+    staged_need = staged_doubles(rows, cols)
+    staged = (threads == 32) | (8 * staged_need <= SMEM_LIMIT)
+    need = np.where(staged, staged_need, global_doubles(cols))
+    too_big = 8 * need > SMEM_LIMIT
+    if too_big.any():
+        i = int(np.flatnonzero(too_big)[0])
         raise ValueError(
-            f"{kernel}: a task with {max_cols} columns needs "
-            f"{smem_bytes} bytes of shared memory (limit {_MAX_SMEM_BYTES})"
+            f"{kernel}: a task of {rows[i]} x {cols[i]} needs {8 * int(need[i])} bytes of "
+            f"shared memory (limit {SMEM_LIMIT})"
         )
-    return smem_bytes
+    # The loop indexes its task in 32 bits.
+    if (rows * np.maximum(strides, 1) >= 2**31).any():
+        raise ValueError(f"{kernel}: a task spans 2^31 or more elements")
+    launches = []
+    for team in (1024, 512, 256, 128, 32):
+        for on_chip in (True, False):
+            members = np.flatnonzero((threads == team) & (staged == on_chip))
+            if not members.size:
+                continue
+            slot = int(need[members].max())
+            smem = 8 * slot * (WARPS_PER_BLOCK if team == 32 else 1)
+            launches.append(Launch(team, on_chip, members, smem))
+    return launches
 
 
 def _check_inputs(tasks: RaggedTasks) -> None:
@@ -122,35 +263,92 @@ def _check_inputs(tasks: RaggedTasks) -> None:
         raise ValueError("em_fixed_point: more tasks than one grid can hold")
 
 
+def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the stream: copied
+    from pinned memory (the caching host allocator keeps the pinned copy
+    until the transfer is done)."""
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return tensor.to(device)
+    return tensor.pin_memory().to(device, non_blocking=True)
+
+
+def launch_task_ids(launches: Sequence[Launch], device: torch.device) -> torch.Tensor:
+    """Every launch's task indices, concatenated in launch order, on
+    ``device`` (one copy for all launches)."""
+    ids = np.concatenate([launch.tasks for launch in launches]) if launches else np.empty(0)
+    return to_device(ids.astype(np.int64), device)
+
+
+_SIDE_STREAMS: Dict[torch.device, List[torch.cuda.Stream]] = {}
+
+
+def run_launches(
+    kernel: str,
+    launches: Sequence[Launch],
+    task_ids: torch.Tensor,
+    call: Callable[[Launch, int, int], int],
+) -> None:
+    """Launch every planned launch with ``call(launch, task_ids pointer,
+    stream)`` (which returns the C function's CUDA error code).  With
+    several launches each gets a stream of its own, ordered after the work
+    queued so far on the current stream, and the current stream waits for
+    all of them: launches of different team sizes overlap on the card.
+    Raises on the first failed launch."""
+    device = task_ids.device
+    current = torch.cuda.current_stream(device)
+    streams = [current]
+    if len(launches) > 1:
+        streams = _SIDE_STREAMS.setdefault(device, [])
+        while len(streams) < len(launches):
+            streams.append(torch.cuda.Stream(device))
+        ready = torch.cuda.Event()
+        ready.record(current)
+    start = 0
+    with torch.cuda.device(device):
+        for launch, stream in zip(launches, streams):
+            if stream is not current:
+                stream.wait_event(ready)
+            rc = call(launch, task_ids[start:].data_ptr(), stream.cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+            if stream is not current:
+                done = torch.cuda.Event()
+                done.record(stream)
+                current.wait_event(done)
+            start += int(launch.tasks.size)
+
+
 def _launch(tasks: RaggedTasks, max_em_its: int, max_rel_em_conv: float):
     global LAUNCHES, TASKS
     _check_inputs(tasks)
     device = tasks.device
     n = tasks.n_tasks
-    n_out = int(tasks.col_offsets[-1]) if n else 0
-    fracs = torch.empty(n_out, dtype=torch.float64, device=device)
+    shapes = tasks.shapes
+    fracs = torch.empty(int(shapes[:, 1].sum()), dtype=torch.float64, device=device)
     iters = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return fracs, iters
-    q_rows = min(tasks.max_rows, _Q_SMEM_ROWS)
-    smem_bytes = shared_memory_bytes(KERNEL_NAME, tasks.max_rows, tasks.max_cols)
-    total_rows = int(tasks.row_offsets[-1])
+    launches = plan_launches(shapes[:, 0], shapes[:, 1])
+    layouts = to_device(sum_layouts(shapes[:, 0], shapes[:, 1]), device)
+    unstaged = any(not launch.staged for launch in launches)
     q_scratch = torch.empty(
-        total_rows if tasks.max_rows > q_rows else 1, dtype=torch.float64, device=device
+        int(shapes[:, 0].sum()) if unstaged else 1, dtype=torch.float64, device=device
     )
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _kernel_fn()(
+
+    def call(launch: Launch, ids: int, stream: int) -> int:
+        return _kernel_fn()(
             tasks.probs.data_ptr(), tasks.counts.data_ptr(),
             tasks.mat_offsets.data_ptr(), tasks.row_offsets.data_ptr(),
             tasks.col_offsets.data_ptr(), tasks.n_rows.data_ptr(),
-            tasks.n_cols.data_ptr(), n, int(max_em_its), float(max_rel_em_conv),
-            q_rows, q_scratch.data_ptr(), fracs.data_ptr(), iters.data_ptr(),
-            _THREADS, smem_bytes, stream,
+            tasks.n_cols.data_ptr(), layouts.data_ptr(), ids, int(launch.tasks.size),
+            launch.threads, int(launch.staged), launch.smem_bytes,
+            int(max_em_its), float(max_rel_em_conv),
+            q_scratch.data_ptr(), fracs.data_ptr(), iters.data_ptr(), stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"em_fixed_point kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+
+    run_launches(KERNEL_NAME, launches, launch_task_ids(launches, device), call)
+    LAUNCHES += len(launches)
     TASKS += n
     return fracs, iters
 

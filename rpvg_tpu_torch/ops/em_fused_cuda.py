@@ -10,7 +10,10 @@ zero probabilities, masks are 0 or 1.
 
 :func:`em_fixed_point_padded` dispatches on the device of the blocks: a
 CUDA tensor launches the kernel once for all blocks (or raises), a CPU
-tensor runs :func:`em_fixed_point_padded_plain`.  The plain version
+tensor runs :func:`em_fixed_point_padded_plain`.  Each cluster's
+extent is found on the device and planned like a ragged task
+(:func:`rpvg_tpu_torch.ops.em_cuda.plan_launches`), so it runs as the
+same team in the same order as in the ragged kernel.  The plain version
 accepts tensors on any device, so the kernel can be held against it on
 the card.
 """
@@ -25,10 +28,18 @@ import torch
 
 from rpvg_tpu_torch.infer.em import _em_solve_batched
 from rpvg_tpu_torch.ops import build
-from rpvg_tpu_torch.ops.em_cuda import _Q_SMEM_ROWS, _THREADS, shared_memory_bytes
+from rpvg_tpu_torch.ops.em_cuda import (
+    launch_task_ids,
+    plan_launches,
+    run_launches,
+    sum_layouts,
+    to_device,
+)
 
-# Kernel launches, the padded clusters and the blocks they covered,
-# since the last reset.  Only a kernel launch adds to them.
+# Kernel launches, the padded clusters they covered, and the blocks
+# (padded buckets) of the calls that made them, since the last reset.
+# Only the kernel route adds to them; one call makes one launch per team
+# size, and each cluster is in exactly one.
 LAUNCHES = 0
 TASKS = 0
 BLOCKS = 0
@@ -76,10 +87,9 @@ def _kernel_fn():
         fn = build.load_library(KERNEL_NAME).rpvg_em_fused_f64
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_int64]
-            + [ctypes.c_void_p] * 3
-            + [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int64] * 5 + [ctypes.c_double]
+            + [ctypes.c_void_p] * 4
         )
         _fn = fn
     return _fn
@@ -104,6 +114,27 @@ def _check_blocks(blocks: Sequence[Block], device: torch.device) -> None:
             )
 
 
+def cluster_extents(blocks: Sequence[Block]) -> np.ndarray:
+    """(n_clusters, 2) host array of each padded cluster's extent, as the
+    kernel finds it: rows up to the last nonzero count, columns up to the
+    last column with a positive mask."""
+    device = blocks[0][1].device
+    B = np.array([c.shape[0] for _, c, _ in blocks], dtype=np.int64)
+    extents = []
+    for k, pad in ((1, [c.shape[1] for _, c, _ in blocks]), (2, [m.shape[1] for _, _, m in blocks])):
+        pad = np.repeat(np.asarray(pad, dtype=np.int64), B)  # per cluster
+        position = np.arange(int(pad.sum())) - np.repeat(np.cumsum(pad) - pad, pad) + 1
+        cluster = np.repeat(np.arange(pad.size), pad)
+        values = torch.cat([block[k].reshape(-1) for block in blocks])
+        on = (values != 0) if k == 1 else (values > 0)
+        last = torch.zeros(pad.size, dtype=torch.int64, device=device)
+        last.scatter_reduce_(
+            0, to_device(cluster, device), torch.where(on, to_device(position, device), 0), "amax"
+        )
+        extents.append(last)
+    return torch.stack(extents, dim=1).cpu().numpy()
+
+
 def _launch(blocks: Sequence[Block], max_em_its: int, max_rel_em_conv: float):
     global LAUNCHES, TASKS, BLOCKS
     device = blocks[0][0].device
@@ -117,32 +148,37 @@ def _launch(blocks: Sequence[Block], max_em_its: int, max_rel_em_conv: float):
     n_clusters = int(cluster_off[-1])
     if n_clusters >= 2**31:
         raise ValueError("em_fixed_point_padded: more clusters than one grid can hold")
-    smem_bytes = shared_memory_bytes(KERNEL_NAME, int(R.max()), int(C.max()))
     desc = np.stack([prob_off[:-1], count_off[:-1], col_off[:-1], R, C], axis=1)
 
     probs = torch.cat([p.reshape(-1) for p, _, _ in blocks])
     counts = torch.cat([c.reshape(-1) for _, c, _ in blocks])
     col_masks = torch.cat([m.reshape(-1) for _, _, m in blocks])
-    desc_t = torch.from_numpy(np.ascontiguousarray(desc)).to(device)
-    cluster_off_t = torch.from_numpy(cluster_off).to(device)
+    desc_t = to_device(desc, device)
+    cluster_off_t = to_device(cluster_off, device)
     fracs = torch.empty(int(col_off[-1]), dtype=torch.float64, device=device)
     iters = torch.empty(n_clusters, dtype=torch.int64, device=device)
-    q_rows = min(int(R.max()), _Q_SMEM_ROWS)
-    q_scratch = torch.empty(
-        counts.numel() if int(R.max()) > q_rows else 1, dtype=torch.float64, device=device
-    )
     if n_clusters:
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = _kernel_fn()(
+        extents = cluster_extents(blocks)
+        launches = plan_launches(
+            extents[:, 0], extents[:, 1], KERNEL_NAME, strides=np.repeat(C, B)
+        )
+        layouts = to_device(sum_layouts(extents[:, 0], extents[:, 1]), device)
+        unstaged = any(not launch.staged for launch in launches)
+        q_scratch = torch.empty(
+            counts.numel() if unstaged else 1, dtype=torch.float64, device=device
+        )
+
+        def call(launch, ids, stream):
+            return _kernel_fn()(
                 probs.data_ptr(), counts.data_ptr(), col_masks.data_ptr(),
-                desc_t.data_ptr(), cluster_off_t.data_ptr(), len(blocks), n_clusters,
-                int(max_em_its), float(max_rel_em_conv), q_rows, q_scratch.data_ptr(),
-                fracs.data_ptr(), iters.data_ptr(), _THREADS, smem_bytes, stream,
+                desc_t.data_ptr(), cluster_off_t.data_ptr(), len(blocks), layouts.data_ptr(),
+                ids, int(launch.tasks.size), launch.threads, int(launch.staged),
+                launch.smem_bytes, int(max_em_its), float(max_rel_em_conv),
+                q_scratch.data_ptr(), fracs.data_ptr(), iters.data_ptr(), stream,
             )
-        if rc != 0:
-            raise RuntimeError(f"em_fixed_point_padded kernel launch failed: CUDA error {rc}")
-        LAUNCHES += 1
+
+        run_launches(KERNEL_NAME, launches, launch_task_ids(launches, device), call)
+        LAUNCHES += len(launches)
         TASKS += n_clusters
         BLOCKS += len(blocks)
     return (

@@ -27,16 +27,16 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from rpvg_tpu.clustering import PathClusters, split_by_bounds
-from rpvg_tpu.constants import FRAG_LENGTH_MIN_MAPQ
-from rpvg_tpu.fragments import FragmentLengthDist
-from rpvg_tpu.graph import Graph, load_graph
-from rpvg_tpu.infer.estimates import PathClusterEstimates
-from rpvg_tpu.io import json_stream, writers
-from rpvg_tpu.io.info import parse_haplotype_transcript_info
-from rpvg_tpu.pathindex import PathIndex
-from rpvg_tpu.probabilities import PathInfo, ReadPathProbs
-from rpvg_tpu.projection import AlignmentPath, AlignmentPathFinder
+from rpvg_tpu_torch.clustering import PathClusters, split_by_bounds
+from rpvg_tpu_torch.constants import FRAG_LENGTH_MIN_MAPQ
+from rpvg_tpu_torch.fragments import FragmentLengthDist
+from rpvg_tpu_torch.graph import Graph, load_graph
+from rpvg_tpu_torch.infer.estimates import PathClusterEstimates
+from rpvg_tpu_torch.io import json_stream, writers
+from rpvg_tpu_torch.io.info import parse_haplotype_transcript_info
+from rpvg_tpu_torch.pathindex import PathIndex
+from rpvg_tpu_torch.probabilities import PathInfo, ReadPathProbs
+from rpvg_tpu_torch.projection import AlignmentPath, AlignmentPathFinder
 from rpvg_tpu_torch.infer.batched_models import (
     batched_haplotype_transcripts,
     batched_haplotypes,
@@ -276,7 +276,7 @@ def run_fragment_pass(
     NativeFinder is driven in batches (the reference's 10k-fragment
     buffers, src/main.cpp:41); the Python engine per fragment."""
     if hasattr(finder, "project_and_index"):
-        from rpvg_tpu.native import serialize_fragments
+        from rpvg_tpu_torch.native import serialize_fragments
 
         session = _NativeIndexerSession(finder, pre_frag_length_dist, is_single_end)
         batch = []
@@ -538,7 +538,7 @@ def _clusters_meta(
 def _run_native_matrix_build(
     config, finder, blobs, entry_counts, meta, frag_log_probs
 ):
-    from rpvg_tpu.infer.matrices import DenseCluster
+    from rpvg_tpu_torch.infer.matrices import DenseCluster
 
     all_paths, pid_arrays, effs, groups, n_groups_list, log_srcs, concats = meta
     matrices = finder.build_cluster_matrices(
@@ -797,7 +797,7 @@ def _is_gbwt_container(path: str) -> bool:
             head = handle.read(4)
     except OSError:
         return False
-    from rpvg_tpu.io.gbwt_file import GBWT_TAG
+    from rpvg_tpu_torch.io.gbwt_file import GBWT_TAG
 
     return len(head) == 4 and struct.unpack("<I", head)[0] == GBWT_TAG
 
@@ -814,7 +814,7 @@ def load_inputs(config: PipelineConfig) -> Tuple[Graph, PathIndex]:
         # is validated-and-ignored; a bad magic still fails loudly.
         ri_path = config.paths + ".ri"
         if os.path.exists(ri_path):
-            from rpvg_tpu.io.gbwt_file import read_ri_header
+            from rpvg_tpu_torch.io.gbwt_file import read_ri_header
 
             read_ri_header(ri_path)
             paths_index.has_r_index = True
@@ -843,7 +843,7 @@ def resolve_pre_fragment_dist(config: PipelineConfig) -> FragmentLengthDist:
         )
     assert isinstance(config.alignments, str)
     if config.alignments.endswith(".rpa"):
-        from rpvg_tpu.io.rpa import RpaReader
+        from rpvg_tpu_torch.io.rpa import RpaReader
 
         reader = RpaReader(config.alignments)
         try:
@@ -857,7 +857,7 @@ def resolve_pre_fragment_dist(config: PipelineConfig) -> FragmentLengthDist:
             )
         finally:
             reader.close()
-    from rpvg_tpu.io.gam import is_gam_path, stream_gam_dicts
+    from rpvg_tpu_torch.io.gam import is_gam_path, stream_gam_dicts
 
     if is_gam_path(config.alignments):
         dict_stream = stream_gam_dicts(
@@ -866,7 +866,7 @@ def resolve_pre_fragment_dist(config: PipelineConfig) -> FragmentLengthDist:
     else:
         dict_stream = json_stream.stream_alignment_dicts(config.alignments)
     for obj in dict_stream:
-        from rpvg_tpu.alignments import _parse_annotation
+        from rpvg_tpu_torch.alignments import _parse_annotation
 
         record = dict(obj)
         if "annotation" in record:
@@ -889,7 +889,7 @@ def iter_fragments(config: PipelineConfig):
     if not isinstance(config.alignments, str):
         yield from config.alignments
         return
-    from rpvg_tpu.io.gam import is_gam_path, stream_gam_alignments
+    from rpvg_tpu_torch.io.gam import is_gam_path, stream_gam_alignments
 
     if is_gam_path(config.alignments):
         it = stream_gam_alignments(config.alignments, not config.single_path)
@@ -925,7 +925,7 @@ def build_finder(config: PipelineConfig, paths_index: PathIndex,
         min_best_score_filter=config.filt_best_score,
     )
     if config.native in ("auto", "on"):
-        from rpvg_tpu import native as native_mod
+        from rpvg_tpu_torch import native as native_mod
 
         if native_mod.native_available():
             return native_mod.NativeFinder(
@@ -955,7 +955,7 @@ def collect_fragments(
         import queue
         import threading
 
-        from rpvg_tpu.io.rpa import RpaReader
+        from rpvg_tpu_torch.io.rpa import RpaReader
 
         session = _NativeIndexerSession(
             finder, pre_frag_length_dist, config.is_single_end()
@@ -1049,7 +1049,7 @@ def run_pipeline(config: PipelineConfig, device: torch.device) -> Dict:
     t_start = time.perf_counter()
     log = lambda msg: print(msg, file=sys.stderr)  # noqa: E731
 
-    from rpvg_tpu.native import set_thread_budget
+    from rpvg_tpu_torch.native import set_thread_budget
 
     set_thread_budget(config.threads)
 
@@ -1105,7 +1105,7 @@ def run_inference_phases(
     """Everything downstream of the fragment index: distribution
     re-fit, clustering, the batched inference phases A-E on ``device``
     and the outputs."""
-    from rpvg_tpu.native import set_thread_budget
+    from rpvg_tpu_torch.native import set_thread_budget
 
     set_thread_budget(config.threads)
     if config.is_single_end():
@@ -1391,7 +1391,7 @@ def _write_hapjoint_columnar(
     from the fused kernel's columnar set streams (byte-identical to the
     object writers; regression-pinned by tests).  Returns False to fall
     back to the object writers."""
-    from rpvg_tpu.native import compose_hapjoint_rows, tpm_normalizer_columnar
+    from rpvg_tpu_torch.native import compose_hapjoint_rows, tpm_normalizer_columnar
 
     # Every result contributes path rows (clusters with no probability
     # rows still list their paths with zero counts, like the object
@@ -1543,7 +1543,7 @@ def _write_abundance_columnar(
     """Native composition of the transcripts/strains estimate file from
     per-path abundance streams (singleton group sets after reset(P, 1);
     byte-identical to AbundanceEstimatesWriter, regression-pinned)."""
-    from rpvg_tpu.native import compose_abundance_rows, tpm_normalizer_perpath
+    from rpvg_tpu_torch.native import compose_abundance_rows, tpm_normalizer_perpath
 
     meta_rows = _gather_path_row_meta(results, path_meta)
     if meta_rows is None:

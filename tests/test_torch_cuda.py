@@ -14,7 +14,7 @@ import torch
 from rpvg_tpu_torch.infer import batching, posteriors
 from rpvg_tpu_torch.infer.batching import fold_fractions, pack_ragged, run_batched_em
 from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
-from rpvg_tpu_torch.testing import em_task_set, padded_block_set, random_task
+from rpvg_tpu_torch.testing import edge_case_tasks, em_task_set, padded_block_set, random_task
 
 pytestmark = pytest.mark.gpu
 
@@ -34,12 +34,13 @@ def _folded(fracs, tasks, task_list):
 def test_kernel_matches_plain(cuda, max_its):
     task_list = em_task_set(512, seed=31)
     tasks = pack_ragged(task_list, cuda)
-    launches = em_cuda.LAUNCHES
+    launches, n_tasks = em_cuda.LAUNCHES, em_cuda.TASKS
+    planned = len(em_cuda.plan_launches(tasks.shapes[:, 0], tasks.shapes[:, 1]))
     k_fracs, k_iters = em_cuda.em_fixed_point(tasks, max_its, 1e-3)
-    assert em_cuda.LAUNCHES == launches + 1
+    assert em_cuda.LAUNCHES == launches + planned
     p_fracs, p_iters = em_cuda.em_fixed_point_plain(tasks, max_its, 1e-3)
     torch.cuda.synchronize()
-    assert em_cuda.LAUNCHES == launches + 1
+    assert (em_cuda.LAUNCHES, em_cuda.TASKS) == (launches + planned, n_tasks + len(task_list))
     kernel = _folded(k_fracs, tasks, task_list)
     plain = _folded(p_fracs, tasks, task_list)
     np.testing.assert_allclose(kernel, plain, rtol=1e-6, atol=1e-9)
@@ -98,6 +99,45 @@ def test_kernel_wide_and_tall_tasks_match_plain(cuda):
     assert torch.equal(k_iters.cpu(), p_iters.cpu())
 
 
+def _largest_staged_rows(C):
+    R = 1
+    while 8 * int(em_cuda.staged_doubles([R + 1], [C])[0]) <= em_cuda.SMEM_LIMIT:
+        R += 1
+    return R
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["edge_cases", "largest_main_path_task_10000_iterations", "just_over_shared_memory"],
+)
+def test_kernel_matches_plain_at_edge_shapes(cuda, case):
+    """R = 1, C = 1, an all-zero row and a zero-count row; the largest
+    main-path task (348 x 61) held to all 10,000 iterations (a negative
+    tolerance never converges); a task one row past what shared memory
+    holds at 61 columns (P read from global memory)."""
+    rng = np.random.default_rng(40)
+    max_its, tol = 10000, 1e-3
+    if case == "edge_cases":
+        task_list = edge_case_tasks(rng) + [random_task(rng, 1, 1)]
+    elif case == "largest_main_path_task_10000_iterations":
+        task_list, tol = [random_task(rng, 348, 61)], -1.0
+    else:
+        task_list = [random_task(rng, _largest_staged_rows(61) + 1, 61), random_task(rng, 3, 9)]
+    tasks = pack_ragged(task_list, cuda)
+    plan = em_cuda.plan_launches(tasks.shapes[:, 0], tasks.shapes[:, 1])
+    if case == "just_over_shared_memory":
+        assert [(lc.threads, lc.staged) for lc in plan] == [(1024, False), (32, True)]
+    k_fracs, k_iters = em_cuda.em_fixed_point(tasks, max_its, tol)
+    p_fracs, p_iters = em_cuda.em_fixed_point_plain(tasks, max_its, tol)
+    np.testing.assert_allclose(
+        _folded(k_fracs, tasks, task_list), _folded(p_fracs, tasks, task_list),
+        rtol=1e-6, atol=1e-9,
+    )
+    assert torch.equal(k_iters.cpu(), p_iters.cpu())
+    if tol < 0:
+        assert int(k_iters[0]) == max_its
+
+
 # ------------------------------------------------ the multi-bucket kernel
 
 
@@ -140,6 +180,22 @@ def test_fused_kernel_matches_plain(cuda, max_its, monkeypatch):
     )
 
 
+@pytest.mark.parametrize("max_its", [10000, 50])
+def test_fused_kernel_bitwise_equal_to_ragged(cuda, max_its, monkeypatch):
+    """Both kernels run a task's extent through the same loop as the same
+    team, so padding changes no bit."""
+    task_list = em_task_set(512, seed=41)
+    groups = _fused_groups(task_list, cuda, monkeypatch)
+    fused = _folded_groups(
+        groups,
+        [em_fused_cuda.em_fixed_point_padded(blocks, max_its, 1e-3)[0] for _, blocks in groups],
+        task_list,
+    )
+    tasks = pack_ragged(task_list, cuda)
+    r_fracs, _ = em_cuda.em_fixed_point(tasks, max_its, 1e-3)
+    np.testing.assert_array_equal(fused, _folded(r_fracs, tasks, task_list))
+
+
 def test_fused_kernel_is_deterministic(cuda, monkeypatch):
     groups = _fused_groups(em_task_set(256, seed=37), cuda, monkeypatch)
     for _, blocks in groups:
@@ -148,11 +204,13 @@ def test_fused_kernel_is_deterministic(cuda, monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-def test_fused_kernel_one_launch_over_shaped_blocks_with_dummy(cuda):
+def test_fused_kernel_one_call_over_shaped_blocks_with_dummy(cuda):
     blocks = [tuple(torch.from_numpy(a).to(cuda) for a in b) for b in padded_block_set(38)]
     launches, n_blocks, tasks = em_fused_cuda.LAUNCHES, em_fused_cuda.BLOCKS, em_fused_cuda.TASKS
+    extents = em_fused_cuda.cluster_extents(blocks)
+    planned = len(em_cuda.plan_launches(extents[:, 0], extents[:, 1]))
     k_fracs, k_iters = em_fused_cuda.em_fixed_point_padded(blocks, 10000, 1e-3)
-    assert em_fused_cuda.LAUNCHES == launches + 1
+    assert em_fused_cuda.LAUNCHES == launches + planned
     assert em_fused_cuda.BLOCKS == n_blocks + len(blocks)
     assert em_fused_cuda.TASKS == tasks + sum(b[0].shape[0] for b in blocks)
     p_fracs, p_iters = em_fused_cuda.em_fixed_point_padded_plain(blocks, 10000, 1e-3)
@@ -190,12 +248,20 @@ def test_fused_kernel_tall_and_wide_blocks_match_plain_and_ragged(cuda, monkeypa
 def test_transcripts_slice_on_cuda_matches_cpu(cuda, fuse, tmp_path, monkeypatch):
     import os
 
-    from rpvg_tpu_torch import cli
+    from rpvg_tpu_torch import cli, sim
     from rpvg_tpu_torch.compare import compare_estimate_files
-    from test_golden import make_dataset
 
     monkeypatch.setenv("RPVG_TPU_FUSE_EM", fuse)
-    panel, aln, _ = make_dataset(str(tmp_path))
+    # The golden dataset of tests/test_golden.py, made through the port.
+    panel = sim.build_panel(
+        num_transcripts=4, num_haplotypes=2, exons_per_transcript=3,
+        exon_length=80, variant_sites=1, seed=101,
+    )
+    records, _ = sim.simulate_read_pairs(
+        panel, 300, read_length=60, frag_mean=150, frag_sd=12, seed=103,
+    )
+    aln = str(tmp_path / "aln.json")
+    sim.write_alignment_json(records, aln)
     graph, paths = str(tmp_path / "graph.json"), str(tmp_path / "panel.json")
     panel.write_graph_json(graph)
     panel.write_panel_json(paths)

@@ -115,7 +115,7 @@ def test_pack_ragged_matches_native_layout():
     np.testing.assert_array_equal(packed.col_offsets.numpy(), np.concatenate([[0], np.cumsum(n_cols)]))
     np.testing.assert_array_equal(packed.probs.numpy(), np.concatenate([p.ravel() for p, _ in tasks]))
     np.testing.assert_array_equal(packed.counts.numpy(), np.concatenate([c for _, c in tasks]))
-    assert packed.max_rows == n_rows.max() and packed.max_cols == n_cols.max()
+    np.testing.assert_array_equal(packed.shapes, np.stack([n_rows, n_cols], axis=1))
     assert packed.probs.dtype == torch.float64 and packed.mat_offsets.dtype == torch.int64
 
 

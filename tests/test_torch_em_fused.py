@@ -160,8 +160,11 @@ def test_other_devices_raise():
 
 
 def test_shared_memory_bound():
-    """A tall block keeps q in global scratch and fits; a block too wide
-    for one thread block's shared memory raises before any launch."""
-    assert em_cuda.shared_memory_bytes("em_fused", 8192, 64) == 8 * (2 * 64 + 128 + 2048)
+    """A tall task keeps P, counts and q in global memory and fits; a task
+    too wide for one thread block's shared memory raises before any
+    launch."""
+    (launch,) = em_cuda.plan_launches([8192], [64], "em_fused")
+    assert (launch.threads, launch.staged) == (1024, False)
+    assert launch.smem_bytes == 8 * (32 + 2 * 64)
     with pytest.raises(ValueError, match="shared memory"):
-        em_cuda.shared_memory_bytes("em_fused", 8, 16384)
+        em_cuda.plan_launches([8], [16384], "em_fused")

@@ -100,8 +100,6 @@ def test_transcripts_run_with_jax_blocked(tmp_path):
     prefix = str(tmp_path / "out")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
-    for var in ("RPVG_TPU_DISABLE_X64", "RPVG_TPU_NO_COMPILE_CACHE"):
-        env.pop(var, None)
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX_RUN, *_argv(graph, paths, aln, prefix, "transcripts")],
         capture_output=True, text=True, env=env, cwd=str(tmp_path), timeout=300,

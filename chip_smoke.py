@@ -10,8 +10,8 @@ Phases (each prints at least one line; any failure exits non-zero):
 0. the card (nvidia-smi name and power limit), torch, and the port's own
    native host library (built with g++ from rpvg_tpu_torch/csrc/host at
    first use);
-1. build both EM kernels from rpvg_tpu_torch/csrc with nvcc for sm_90a,
-   in parallel;
+1. build all four kernels (both EM kernels, both Gibbs samplers) from
+   rpvg_tpu_torch/csrc with nvcc for sm_90a, in parallel;
 2. the ragged kernel against its plain PyTorch version on the card, on a
    seeded task set shaped like the main path's phase D; its time beside
    its roofline bound, and its slowest task alone;
@@ -29,7 +29,29 @@ Phases (each prints at least one line; any failure exits non-zero):
    and against the ragged kernel (bitwise); its bound and slowest cluster;
 6. transcripts -f (ragged route, then RPVG_TPU_FUSE_EM=1), strains and
    haplotypes on phase 4's dataset, each with the counters reset just
-   before and read just after.
+   before and read just after;
+9. (run before 7 and 8) the Gibbs configurations at full width on phase
+   4's dataset: haplotype-transcripts -f -n 100 (the read-count
+   sampler's main path; the jobs its phase D2 hands
+   gibbs_cuda.gibbs_read_counts are captured), transcripts -f -n 100,
+   strains -n 100, haplotypes --use-hap-gibbs (the posterior sampler's
+   main path; its clusters are captured), and the -n 100 main path on
+   --backend cpu (native samplers) held against the cuda run;
+7. the read-count Gibbs kernel against its plain version on 261 seeded
+   jobs (every kept fraction within rtol 1e-9, or the job held to the
+   distributional bounds against the native sampler), against the native
+   sampler on tests/test_gibbs_crossbackend.py's fixture, then re-timed
+   on phase 9's captured jobs;
+8. the posterior Gibbs kernel likewise (every sampled pair equal to the
+   plain version's; total variation against the native sampler), then
+   re-timed on phase 9's captured clusters.
+
+Phase 3 also runs the CPU tests' seven Gibbs configurations (-n 8 for
+every abundance model, --use-hap-gibbs for both haplotype models) on
+both devices: -n runs keep their point estimates within rtol 1e-6 and
+their _gibbs.txt.gz rows within 6 standard errors; --use-hap-gibbs
+posteriors are no further apart across devices (total variation per
+cluster) than two CPU runs with different seeds.
 
 The last two lines are a JSON line of kernel results and
 {"ok": true, "device": {...}}.  Without CUDA the script exits 1 and
@@ -38,6 +60,7 @@ prints no result.
 
 import concurrent.futures
 import json
+import math
 import os
 import subprocess
 import sys
@@ -380,6 +403,397 @@ def phase_fused_kernel(torch, device, ragged_ms):
     }
 
 
+GIBBS_THIN = 25
+N_SE = 6.0
+KS_P = 1e-3
+TV_MAX = 0.05
+# Largest mean excess of the cuda-vs-cpu total variation of a cluster's
+# --use-hap-gibbs posterior over the cpu-vs-cpu one (another seed).
+TV_EXCESS = 0.01
+
+
+def gibbs_rows_allowed(rows):
+    """_gibbs.txt.gz rows allowed outside N_SE standard errors across
+    devices.  A chain keeps few, autocorrelated samples, and two near-equal
+    haplotypes of one transcript swap mass between them for stretches of
+    it, so the sample standard error of such a pair understates its spread
+    and two rows at a time land far out under a correct sampler (seen
+    between two CPU samplers drawing different streams)."""
+    return max(4, math.ceil(0.005 * rows))
+
+
+def distribution_check(a, b):
+    """(largest mean difference in standard errors, smallest KS p-value)
+    over the columns of two sample matrices (samples x columns), and
+    whether both bounds of tests/test_gibbs_crossbackend.py hold (means
+    within 6 standard errors, KS p > 1e-3)."""
+    import numpy as np
+    from scipy.stats import ks_2samp
+
+    worst_se, worst_p = 0.0, 1.0
+    ok = True
+    for j in range(a.shape[1]):
+        x, y = a[:, j], b[:, j]
+        se = np.sqrt(x.var() / x.size + y.var() / y.size)
+        diff = abs(x.mean() - y.mean())
+        if diff > max(N_SE * se, 1e-9 * max(1.0, abs(y.mean()))):
+            ok = False
+        if se > 0:
+            worst_se = max(worst_se, diff / se)
+        if x.std() > 0 or y.std() > 0:
+            p = ks_2samp(x, y).pvalue
+            worst_p = min(worst_p, p)
+            ok = ok and p > KS_P
+    return worst_se, worst_p, ok
+
+
+def total_variation(a, b):
+    support = set(a) | set(b)
+    return 0.5 * sum(abs(a.get(g, 0.0) - b.get(g, 0.0)) for g in support)
+
+
+def gibbs_fixture():
+    """tests/test_gibbs_crossbackend.py's 60 x 7 cluster."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    R, P = 60, 6
+    probs = rng.random((R, P + 1)) * 0.5
+    probs /= probs.sum(axis=1, keepdims=True)
+    counts = rng.integers(1, 12, size=R).astype(np.float64)
+    return probs, counts
+
+
+def gibbs_job_slices(jobs, out):
+    """Per job, its kept fractions (S, C) as a host array."""
+    out = out.cpu().numpy()
+    offsets = jobs.out_offsets.cpu().numpy()
+    return [
+        out[offsets[j] : offsets[j + 1]].reshape(int(jobs.host_samples[j]), int(C))
+        for j, C in enumerate(jobs.shapes[:, 1])
+    ]
+
+
+def gibbs_bound(jobs, thin):
+    """(bound ms, what bounds it) of a read-count Gibbs call: every task
+    matrix, count, starting fraction and per-job word read once and every
+    kept fraction written once at the HBM rate, against the arithmetic of
+    its iterations at the FP64 peak.  Per iteration: 2 R C flops for the
+    rows' masses; a row of n <= 256 reads walks n times, counted at half
+    its C columns (a multiply and an add each, so n C); a larger row splits
+    by C binomials, counted at 50 flops each; and 22 C for the Gamma
+    draws and the normalisation."""
+    import numpy as np
+
+    from rpvg_tpu_torch.ops.gibbs_cuda import MAX_TRIALS
+
+    R, C = jobs.shapes[:, 0].astype(np.float64), jobs.shapes[:, 1].astype(np.float64)
+    S = jobs.host_samples.astype(np.float64)
+    counts = jobs.tasks.counts.cpu().numpy()
+    row_off = jobs.tasks.row_offsets.cpu().numpy()
+    split = np.zeros(jobs.n_jobs)
+    for j, task in enumerate(jobs.host_task_ids):
+        n = counts[row_off[task]:row_off[task + 1]]
+        split[j] = n[n <= MAX_TRIALS].sum() * C[j] + 50.0 * C[j] * (n > MAX_TRIALS).sum()
+    in_bytes = 8 * float((R * C + R + C + 7).sum())
+    out_bytes = 8 * float((S * C).sum())
+    flops = float((S * thin * (2 * R * C + split + 22 * C)).sum())
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP64_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def posterior_bound(jobs):
+    """(bound ms, what bounds it) of a posterior Gibbs call: the (P, P)
+    scores read once and the sampled int32 pairs written once at the HBM
+    rate, against 4 P^2 flops (maximum, difference, exponential and sum,
+    then the division) for the CDFs plus two binary searches of
+    ceil(log2 P) comparisons per chain step, at the FP64 peak."""
+    import numpy as np
+
+    h = jobs.host
+    P = h["n_cols"].astype(np.float64)
+    steps = (h["n_chains"] * (h["n_burn"] + h["n_its"])).astype(np.float64)
+    in_bytes = 8 * float((P * P + 7).sum())
+    out_bytes = 8 * float((h["n_chains"] * h["n_its"]).sum())
+    flops = float((4 * P * P + steps * 2 * np.ceil(np.log2(P + 1))).sum())
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP64_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def phase_gibbs_kernel(torch, device, captured):
+    """Phase 7: the read-count kernel against its plain version on 261
+    seeded jobs shaped like phase D's tasks (8 samples at thin 25), every
+    diverged job held to the distributional bounds against the native
+    sampler; against the native sampler on the crossbackend fixture; then
+    re-timed on the jobs phase D2 of phase 9's -n 100 main-path run handed
+    it, and their slowest job alone."""
+    import numpy as np
+
+    from rpvg_tpu_torch import prng
+    from rpvg_tpu_torch.infer import readcount_gibbs
+    from rpvg_tpu_torch.ops import gibbs_cuda
+    from rpvg_tpu_torch.testing import gibbs_job_set, gibbs_jobs_on
+
+    inputs = gibbs_job_set(256, seed=61)
+    jobs = gibbs_jobs_on(inputs, device, [8] * len(inputs), seed=62)
+    kernel = gibbs_cuda.gibbs_read_counts(jobs, GIBBS_THIN, 1.0)
+    again = gibbs_cuda.gibbs_read_counts(jobs, GIBBS_THIN, 1.0)
+    torch.cuda.synchronize()
+    if not torch.equal(kernel, again):
+        raise AssertionError("read-count Gibbs kernel is not deterministic across runs")
+    plain = gibbs_cuda.gibbs_read_counts_plain(jobs, GIBBS_THIN, 1.0)
+    diverged, max_abs = [], 0.0
+    for j, (k, p) in enumerate(zip(gibbs_job_slices(jobs, kernel), gibbs_job_slices(jobs, plain))):
+        if np.allclose(k, p, rtol=1e-9, atol=0.0):
+            max_abs = max(max_abs, float(np.abs(k - p).max()))
+        else:
+            diverged.append(j)
+    keys = prng.split(prng.prng_key(62), len(inputs))
+    for j in diverged:
+        # 200 samples of the job from the kernel and the native sampler.
+        one = gibbs_jobs_on([inputs[j]], device, [200], seed=63)
+        k = gibbs_job_slices(one, gibbs_cuda.gibbs_read_counts(one, GIBBS_THIN, 1.0))[0]
+        native = readcount_gibbs.run_native_gibbs([inputs[j]], [keys[j]], 200, GIBBS_THIN)[0]
+        n = np.column_stack([native[1], native[0]]) / inputs[j][4]
+        worst_se, worst_p, ok = distribution_check(k, n)
+        if not ok:
+            raise AssertionError(
+                f"diverged job {j} {inputs[j][0].shape} fails the distributional bounds: "
+                f"{worst_se:.2f} se, KS p {worst_p:.2e}"
+            )
+    kernel_ms = cuda_ms(lambda: gibbs_cuda.gibbs_read_counts(jobs, GIBBS_THIN, 1.0), reps=10)
+    plain_ms = cuda_ms(lambda: gibbs_cuda.gibbs_read_counts_plain(jobs, GIBBS_THIN, 1.0),
+                       reps=1, warmup=False)
+    bound_ms, bound_by = gibbs_bound(jobs, GIBBS_THIN)
+    log(
+        f"phase 7: read-count Gibbs kernel vs plain on {len(inputs)} seeded jobs (8 samples, "
+        f"thin {GIBBS_THIN}): {len(inputs) - len(diverged)} within rtol 1e-9 (max abs "
+        f"{max_abs:.3e}), {len(diverged)} diverged (each within {N_SE:.0f} se and KS p > "
+        f"{KS_P} of the native sampler at 200 samples); kernel {kernel_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (CUDA events), bound {bound_ms:.5f} ms ({bound_by})"
+    )
+
+    # The crossbackend fixture: 400 samples at thin 50, one chain each.
+    probs, counts = gibbs_fixture()
+    total = float(counts.sum())
+    item = (probs, counts, np.full(6, total / 6), 1.0, total)
+    key = prng.prng_key(77)
+    on_card = readcount_gibbs.run_batched_gibbs([item], [key], 400, 50, 1.0, device)[0]
+    native = readcount_gibbs.run_native_gibbs([item], [key], 400, 50)[0]
+    worst_se, worst_p, ok = distribution_check(
+        np.column_stack([on_card[1], on_card[0]]), np.column_stack([native[1], native[0]])
+    )
+    log(
+        f"phase 7: read-count Gibbs on cuda vs the native sampler, crossbackend fixture "
+        f"(60 x 7, 400 samples at thin 50): worst mean difference {worst_se:.2f} se, "
+        f"smallest KS p {worst_p:.3e}"
+    )
+    if not ok:
+        raise AssertionError("read-count Gibbs on cuda fails the distributional bounds")
+
+    if len(captured) != 1:
+        raise AssertionError(f"phase D2 called the read-count kernel {len(captured)} times, not once")
+    main_jobs, thin, gamma = captured[0]
+    main_ms = cuda_ms(lambda: gibbs_cuda.gibbs_read_counts(main_jobs, thin, gamma), reps=3)
+    main_bound, main_by = gibbs_bound(main_jobs, thin)
+    shapes = main_jobs.shapes
+    work = main_jobs.host_samples * shapes[:, 0] * shapes[:, 1]
+    slow = []
+    for j in sorted(set(np.argsort(-work)[:3].tolist()) | set(np.argsort(-main_jobs.host_samples)[:1].tolist())):
+        task = int(main_jobs.host_task_ids[j])
+        one = gibbs_cuda.make_jobs(
+            main_jobs.tasks, [task],
+            [main_jobs.init_fracs[main_jobs.frac_offsets[j]:main_jobs.frac_offsets[j + 1]].cpu().numpy()],
+            [int(main_jobs.seeds[j].item()) & 0xFFFFFFFFFFFFFFFF], [int(main_jobs.host_samples[j])],
+        )
+        slow.append((cuda_ms(lambda: gibbs_cuda.gibbs_read_counts(one, thin, gamma), reps=3), j))
+    alone_ms, j = max(slow)
+    log(
+        f"phase 7: the -n 100 run's phase-D2 jobs ({main_jobs.n_jobs}, samples median "
+        f"{int(np.median(main_jobs.host_samples))} max {int(main_jobs.host_samples.max())}, "
+        f"thin {thin}) re-timed: kernel {main_ms:.3f} ms (CUDA events), bound "
+        f"{main_bound:.5f} ms ({main_by}); slowest job {tuple(map(int, shapes[j]))} x "
+        f"{int(main_jobs.host_samples[j])} samples alone {alone_ms:.3f} ms"
+    )
+    return {
+        "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "diverged_jobs": len(diverged), "main_path_jobs": main_jobs.n_jobs,
+        "main_path_jobs_ms": main_ms, "main_path_jobs_bound_ms": main_bound,
+        "main_path_slowest_job_ms": alone_ms,
+    }
+
+
+def phase_posterior_kernel(torch, device, captured):
+    """Phase 8: the posterior kernel against its plain version on 256
+    seeded clusters (every pair equal), against the native sampler on the
+    crossbackend fixture (total variation, top group), then re-timed on
+    the clusters of phase 9's haplotypes --use-hap-gibbs run."""
+    import numpy as np
+
+    from rpvg_tpu_torch import prng
+    from rpvg_tpu_torch.infer import posteriors
+    from rpvg_tpu_torch.ops import posterior_gibbs_cuda
+    from rpvg_tpu_torch.testing import posterior_cluster_set
+
+    clusters = posterior_cluster_set(256, seed=71)
+    keys = prng.split(prng.prng_key(72), len(clusters))
+    jobs = posteriors.posterior_gibbs_jobs(clusters, keys, device)
+    kernel = posterior_gibbs_cuda.posterior_gibbs(jobs)
+    plain = posterior_gibbs_cuda.posterior_gibbs_plain(jobs)
+    torch.cuda.synchronize()
+    offsets = jobs.host["out_offsets"]
+    k_host, p_host = kernel.cpu().numpy(), plain.cpu().numpy()
+    diverged = [b for b in range(len(clusters))
+                if not np.array_equal(k_host[offsets[b]:offsets[b + 1]], p_host[offsets[b]:offsets[b + 1]])]
+    chains, its = jobs.host["n_chains"], jobs.host["n_its"]
+    if diverged:
+        k_post = posteriors._dedup_pairs(k_host, offsets, chains, its)
+        native = posteriors._posterior_gibbs_native([clusters[b] for b in diverged],
+                                                    [keys[b] for b in diverged])
+        for b, (groups, freqs) in zip(diverged, native):
+            tv = total_variation(dict(zip(map(tuple, k_post[b][0]), k_post[b][1])),
+                                 dict(zip(map(tuple, groups), freqs)))
+            if tv >= TV_MAX:
+                raise AssertionError(f"diverged cluster {b}: total variation {tv:.3f} vs native")
+    kernel_ms = cuda_ms(lambda: posterior_gibbs_cuda.posterior_gibbs(jobs), reps=10)
+    plain_ms = cuda_ms(lambda: posterior_gibbs_cuda.posterior_gibbs_plain(jobs), reps=1, warmup=False)
+    bound_ms, bound_by = posterior_bound(jobs)
+    log(
+        f"phase 8: posterior Gibbs kernel vs plain on {len(clusters)} seeded clusters (P 1-28, "
+        f"{int(chains.sum())} chains): {len(clusters) - len(diverged)} with every pair equal, "
+        f"{len(diverged)} diverged (each within total variation {TV_MAX} of the native "
+        f"sampler); kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events), bound "
+        f"{bound_ms:.5f} ms ({bound_by})"
+    )
+
+    probs_full, counts = gibbs_fixture()
+    cluster = (probs_full[:, :-1], probs_full[:, -1], counts, [1] * 6)
+    key = prng.prng_key(33)
+    (on_card,) = posteriors.path_group_posteriors_gibbs_batched([cluster], 2, [key], device)
+    (native,) = posteriors._posterior_gibbs_native([cluster], [key])
+    d_card = dict(zip(map(tuple, on_card[0]), on_card[1]))
+    d_native = dict(zip(map(tuple, native[0]), native[1]))
+    tv = total_variation(d_card, d_native)
+    same_top = max(d_card, key=d_card.get) == max(d_native, key=d_native.get)
+    log(f"phase 8: posterior Gibbs on cuda vs the native sampler, crossbackend fixture: "
+        f"total variation {tv:.4f}, same top group {same_top}")
+    if tv >= TV_MAX or not same_top:
+        raise AssertionError("posterior Gibbs on cuda disagrees with the native sampler")
+
+    if len(captured) != 1:
+        raise AssertionError(f"phase B called the posterior kernel {len(captured)} times, not once")
+    main = captured[0]
+    main_ms = cuda_ms(lambda: posterior_gibbs_cuda.posterior_gibbs(main), reps=5)
+    main_bound, main_by = posterior_bound(main)
+    log(
+        f"phase 8: the --use-hap-gibbs run's {main.n_clusters} clusters (P median "
+        f"{int(np.median(main.host['n_cols']))} max {int(main.host['n_cols'].max())}) re-timed: "
+        f"kernel {main_ms:.3f} ms (CUDA events), bound {main_bound:.5f} ms ({main_by})"
+    )
+    return {
+        "max_abs_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "diverged_clusters": len(diverged),
+        "main_path_clusters": main.n_clusters, "main_path_clusters_ms": main_ms,
+        "main_path_clusters_bound_ms": main_bound,
+    }
+
+
+GIBBS_CONFIGS = (
+    # (label, model, -f, extra flags, -n)
+    ("transcripts -n 8", "transcripts", False, ("-n", "8"), True),
+    ("transcripts -f -n 8", "transcripts", True, ("-n", "8"), True),
+    ("strains -n 8", "strains", False, ("-n", "8"), True),
+    ("haplotype-transcripts -n 8", "haplotype-transcripts", True, ("-n", "8"), True),
+    ("haplotypes --use-hap-gibbs", "haplotypes", False, ("--use-hap-gibbs",), False),
+    ("haplotype-transcripts --use-hap-gibbs", "haplotype-transcripts", True,
+     ("--use-hap-gibbs",), False),
+    ("haplotype-transcripts -n 8 --use-hap-gibbs", "haplotype-transcripts", True,
+     ("-n", "8", "--use-hap-gibbs"), True),
+)
+
+
+def cluster_posteriors(stats):
+    """Per non-empty cluster, group set -> posterior, from a run's results."""
+    out = []
+    for result in stats["results"]:
+        est = result.estimates
+        if est.path_group_sets:
+            out.append({tuple(g): p for g, p in zip(est.path_group_sets, est.posteriors)})
+        else:
+            out.append(None)
+    return out
+
+
+def phase_gibbs_cli(cli, compare, small, work, threads):
+    """Phase 3, Gibbs runs: the CPU tests' seven configurations with
+    --backend cuda and cpu at 5k pairs.  -n runs: .txt within rtol 1e-6
+    (Gibbs does not touch point estimates) and _gibbs.txt.gz rows within
+    6 se.  --use-hap-gibbs runs: per cluster total variation between the
+    devices, against the same between two CPU seeds."""
+    import numpy as np
+
+    for label, model, info, extra, n_run in GIBBS_CONFIGS:
+        stats = {}
+        for backend in ("cuda", "cpu"):
+            prefix = os.path.join(work, f"gibbs_{label.replace(' ', '_')}_{backend}")
+            rc, stats[backend] = cli.run_cli(cli_argv(small, prefix, backend, threads, model, info)
+                                             + list(extra))
+            if rc != 0:
+                raise RuntimeError(f"{label} --backend {backend} exited {rc}")
+        prefix = lambda b: os.path.join(work, f"gibbs_{label.replace(' ', '_')}_{b}")  # noqa: E731
+        parts = []
+        hap_gibbs = "--use-hap-gibbs" in extra
+        if not hap_gibbs:
+            for suffix in output_suffixes(model):
+                rep = compare.compare_estimate_files(prefix("cuda") + suffix, prefix("cpu") + suffix,
+                                                     RTOL, ATOL_OUT)
+                parts.append(f"{suffix} {rep['rows']} rows within rtol {RTOL}")
+        if n_run:
+            rep = compare.compare_gibbs_files(prefix("cuda") + "_gibbs.txt.gz",
+                                              prefix("cpu") + "_gibbs.txt.gz", N_SE,
+                                              same_rows=not hap_gibbs)
+            allowed = gibbs_rows_allowed(rep["rows"])
+            parts.append(
+                f"_gibbs.txt.gz {rep['rows']} common rows{'' if hap_gibbs else ' (same rows)'}, "
+                f"{rep['outside']} outside {N_SE:.0f} se (allowed {allowed}), worst "
+                f"{rep['max_se']:.2f} se"
+            )
+            if rep["outside"] > allowed:
+                log(f"phase 3: {label}: " + "; ".join(parts))
+                raise AssertionError(f"{label}: Gibbs sample means differ across devices")
+        if hap_gibbs:
+            seed_argv = cli_argv(small, os.path.join(work, "gibbs_seed43"), "cpu", threads, model, info)
+            seed_argv[seed_argv.index("-r") + 1] = "43"
+            rc, other = cli.run_cli(seed_argv + list(extra))
+            if rc != 0:
+                raise RuntimeError(f"{label} -r 43 exited {rc}")
+            pairs = [
+                (a, b, c) for a, b, c in zip(cluster_posteriors(stats["cuda"]),
+                                             cluster_posteriors(stats["cpu"]),
+                                             cluster_posteriors(other))
+                if a is not None and b is not None and c is not None
+            ]
+            tv_dev = np.array([total_variation(a, b) for a, b, _ in pairs])
+            tv_seed = np.array([total_variation(b, c) for _, b, c in pairs])
+            # Paired over clusters: how much further cuda's posteriors sit
+            # from cpu's than a second cpu seed's do.
+            excess = tv_dev - tv_seed
+            excess_se = float(excess.std(ddof=1) / np.sqrt(excess.size)) if excess.size > 1 else 0.0
+            parts.append(
+                f"{len(pairs)} clusters: total variation cuda vs cpu mean {tv_dev.mean():.4f} "
+                f"({float((tv_dev < TV_MAX).mean()):.3f} of clusters < {TV_MAX}); cpu -r 42 vs "
+                f"-r 43 mean {tv_seed.mean():.4f} ({float((tv_seed < TV_MAX).mean()):.3f} < "
+                f"{TV_MAX}); excess {excess.mean():.4f} +- {excess_se:.4f} (allowed "
+                f"{TV_EXCESS} + 3 se)"
+            )
+            if excess.mean() > TV_EXCESS + 3 * excess_se:
+                log(f"phase 3: {label}: " + "; ".join(parts))
+                raise AssertionError(f"{label}: posteriors differ across devices beyond seed noise")
+        log(f"phase 3: {label}, 5000 pairs, --backend cuda vs cpu: " + "; ".join(parts))
+
+
 def write_dataset(sim, rpa, alignments, out_dir, num_genes, num_pairs, seed_panel, seed_reads):
     """Gene panel (graph/panel JSON, info TSV) and paired multipath reads
     as a binary .rpa stream, made from seeds."""
@@ -420,30 +834,37 @@ def output_suffixes(model):
 
 def reset_counters():
     from rpvg_tpu_torch.infer import posteriors
-    from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
+    from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda, gibbs_cuda, posterior_gibbs_cuda
 
     em_cuda.LAUNCHES = em_cuda.TASKS = 0
     em_fused_cuda.LAUNCHES = em_fused_cuda.TASKS = em_fused_cuda.BLOCKS = 0
+    gibbs_cuda.LAUNCHES = gibbs_cuda.JOBS = 0
+    posterior_gibbs_cuda.LAUNCHES = posterior_gibbs_cuda.CLUSTERS = 0
     for key in posteriors.SCORED_CLUSTERS:
         posteriors.SCORED_CLUSTERS[key] = 0
 
 
 def read_counters():
     from rpvg_tpu_torch.infer import posteriors
-    from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
+    from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda, gibbs_cuda, posterior_gibbs_cuda
 
     return {
         "ragged_launches": em_cuda.LAUNCHES, "ragged_tasks": em_cuda.TASKS,
         "fused_launches": em_fused_cuda.LAUNCHES, "fused_tasks": em_fused_cuda.TASKS,
         "fused_blocks": em_fused_cuda.BLOCKS,
+        "gibbs_launches": gibbs_cuda.LAUNCHES, "gibbs_jobs": gibbs_cuda.JOBS,
+        "posterior_launches": posterior_gibbs_cuda.LAUNCHES,
+        "posterior_clusters": posterior_gibbs_cuda.CLUSTERS,
         "scored_cuda": posteriors.SCORED_CLUSTERS.get("cuda", 0),
         "scored_cpu": posteriors.SCORED_CLUSTERS.get("cpu", 0),
     }
 
 
-def check_routes(model, fused, stats, counts):
+def check_routes(model, fused, stats, counts, hap_gibbs=False):
     """The run's device work went through the kernels and the cuda pair
-    scorer: every EM task in the route's kernel, none in the other."""
+    scorer: every EM task in the route's kernel, none in the other; every
+    Gibbs job and (with --use-hap-gibbs) every scored cluster in its
+    sampler kernel."""
     em_tasks = stats.get("em_tasks", 0)
     if fused:
         ok = (
@@ -456,12 +877,17 @@ def check_routes(model, fused, stats, counts):
         )
     if model in ("haplotypes", "haplotype-transcripts"):
         ok = ok and counts["scored_cuda"] == stats["scored_clusters"] and not counts["scored_cpu"]
+    gibbs_jobs = stats.get("gibbs_jobs", 0)
+    ok = ok and counts["gibbs_jobs"] == gibbs_jobs and (counts["gibbs_launches"] >= 1) == (gibbs_jobs > 0)
+    posterior = stats["scored_clusters"] if hap_gibbs else 0
+    ok = ok and counts["posterior_clusters"] == posterior and (
+        counts["posterior_launches"] >= 1) == (posterior > 0)
     if not ok:
         raise AssertionError(f"{model}: device work not all through the kernels: {counts}")
 
 
 def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, threads,
-              model, info, fused=False):
+              model, info, fused=False, extra=()):
     """One CLI run at full width with the counters reset just before and
     read just after; returns (stats, counters) after printing a line."""
     torch.cuda.reset_peak_memory_stats(device)
@@ -470,7 +896,7 @@ def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, thr
     reset_counters()
     t0 = time.perf_counter()
     try:
-        rc, stats = cli.run_cli(cli_argv(paths, prefix, "cuda", threads, model, info))
+        rc, stats = cli.run_cli(cli_argv(paths, prefix, "cuda", threads, model, info) + list(extra))
     finally:
         os.environ.pop("RPVG_TPU_FUSE_EM", None)
     wall = time.perf_counter() - t0
@@ -478,7 +904,20 @@ def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, thr
     if rc != 0:
         raise RuntimeError(f"bench-scale {model} run exited {rc}")
     rows = [check_estimate_file(prefix + s) for s in output_suffixes(model)]
-    check_routes(model, fused, stats, counts)
+    check_routes(model, fused, stats, counts, hap_gibbs="--use-hap-gibbs" in extra)
+    gibbs = ""
+    if "-n" in extra:
+        from rpvg_tpu_torch.compare import read_gibbs_file
+
+        header, gibbs_rows = read_gibbs_file(prefix + "_gibbs.txt.gz")
+        if not gibbs_rows or not all(all(map(math.isfinite, v)) for v in gibbs_rows.values()):
+            raise AssertionError(f"{model}: _gibbs.txt.gz has no rows or non-finite samples")
+        gibbs = (f", {stats['gibbs_jobs']} Gibbs jobs through the read-count kernel in "
+                 f"{counts['gibbs_launches']} launch(es), _gibbs.txt.gz {len(gibbs_rows)} rows x "
+                 f"{len(header) - 2} samples, all finite")
+    if "--use-hap-gibbs" in extra:
+        gibbs += (f", {counts['posterior_clusters']} clusters through the posterior kernel in "
+                  f"{counts['posterior_launches']} launch(es)")
     phases = ", ".join(f"{k} {v:.3f}s" for k, v in stats["phase_seconds"].items())
     route = "multi-bucket kernel" if fused else "ragged kernel"
     em = (
@@ -489,11 +928,12 @@ def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, thr
     )
     scored = f", {stats['scored_clusters']} clusters scored on cuda" if "scored_clusters" in stats else ""
     log(
-        f"phase {phase}: {model}{' -f' if info else ''}{' RPVG_TPU_FUSE_EM=1' if fused else ''}: {PAIRS} pairs "
+        f"phase {phase}: {model}{' -f' if info else ''}{' ' + ' '.join(extra) if extra else ''}"
+        f"{' RPVG_TPU_FUSE_EM=1' if fused else ''}: {PAIRS} pairs "
         f"on cuda in {wall:.2f}s wall = {PAIRS / wall:.1f} read pairs/s; fragment pass "
         f"{stats['fragment_pass_seconds']:.2f}s, matrices {stats['matrix_seconds']:.2f}s, "
         f"phases {phases}, outputs {stats['output_seconds']:.2f}s; "
-        f"{stats['num_clusters']} clusters{scored}, {em}; output rows "
+        f"{stats['num_clusters']} clusters{scored}, {em}{gibbs}; output rows "
         f"{' + '.join(map(str, rows))}, all finite; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB"
     )
@@ -519,18 +959,20 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}"
     )
 
-    from rpvg_tpu_torch import alignments, cli, native, sim
+    from rpvg_tpu_torch import alignments, cli, compare, native, sim
     from rpvg_tpu_torch.compare import check_estimate_file, compare_estimate_files
+    from rpvg_tpu_torch.infer import posteriors
     from rpvg_tpu_torch.io import rpa
-    from rpvg_tpu_torch.ops import build, em_cuda, em_fused_cuda
+    from rpvg_tpu_torch.ops import build, em_cuda, em_fused_cuda, gibbs_cuda, posterior_gibbs_cuda
 
     t0 = time.perf_counter()
     if native.load_library() is None:
         raise RuntimeError("the native host library did not build")
     log(f"phase 0: native host library ready in {time.perf_counter() - t0:.1f}s")
 
-    # Phase 1: build both kernels from the checkout's sources, one nvcc each.
-    names = (em_cuda.KERNEL_NAME, em_fused_cuda.KERNEL_NAME)
+    # Phase 1: build all four kernels from the checkout's sources, one nvcc each.
+    names = (em_cuda.KERNEL_NAME, em_fused_cuda.KERNEL_NAME, gibbs_cuda.KERNEL_NAME,
+             posterior_gibbs_cuda.KERNEL_NAME)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(lambda name: build.build_library(name, force=True), names))
@@ -570,6 +1012,7 @@ def main() -> int:
                                f"{rep['byte_identical']}")
             log(f"phase 3: {model}, 5000 pairs, --backend cuda vs cpu: rows identical; "
                 + "; ".join(reports))
+        phase_gibbs_cli(cli, compare, small, work, threads)
 
         # Phase 4: the main path at bench scale.
         t0 = time.perf_counter()
@@ -621,6 +1064,72 @@ def main() -> int:
             f"{rep['rows']} rows, max abs {rep['max_abs_diff']:.3e}, max rel "
             f"{rep['max_rel_diff']:.3e}, byte-identical {rep['byte_identical']}")
 
+        # Phase 9 (before 7 and 8, which re-time the samplers on what it
+        # captures): the Gibbs configurations at full width.
+        gibbs_captured, posterior_captured = [], []
+        sample, sample_posterior = gibbs_cuda.gibbs_read_counts, posterior_gibbs_cuda.posterior_gibbs
+
+        def capture_gibbs(jobs, thin_its, gamma):
+            gibbs_captured.append((jobs, thin_its, gamma))
+            return sample(jobs, thin_its, gamma)
+
+        def capture_posterior(jobs):
+            posterior_captured.append(jobs)
+            return sample_posterior(jobs)
+
+        runs = {}
+        for key, model, info, extra in (
+            ("main", "haplotype-transcripts", True, ("-n", "100")),
+            ("transcripts", "transcripts", True, ("-n", "100")),
+            ("strains", "strains", False, ("-n", "100")),
+            ("haplotypes", "haplotypes", False, ("--use-hap-gibbs",)),
+        ):
+            gibbs_cuda.gibbs_read_counts = capture_gibbs if key == "main" else sample
+            posterior_gibbs_cuda.posterior_gibbs = (
+                capture_posterior if key == "haplotypes" else sample_posterior
+            )
+            try:
+                runs[key] = bench_run(torch, device, cli, check_estimate_file, 9, bench,
+                                      os.path.join(work, f"gibbs_{key}"), threads, model, info,
+                                      extra=extra)
+            finally:
+                gibbs_cuda.gibbs_read_counts = sample
+                posterior_gibbs_cuda.posterior_gibbs = sample_posterior
+        t0 = time.perf_counter()
+        rc, cpu_stats = cli.run_cli(
+            cli_argv(bench, os.path.join(work, "gibbs_main_cpu"), "cpu", threads) + ["-n", "100"]
+        )
+        cpu_wall = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"-n 100 main path on cpu exited {rc}")
+        log(
+            f"phase 9: haplotype-transcripts -f -n 100 on cpu (native samplers): {PAIRS} pairs in "
+            f"{cpu_wall:.2f}s wall; phases "
+            + ", ".join(f"{k} {v:.3f}s" for k, v in cpu_stats["phase_seconds"].items())
+            + f"; {cpu_stats['gibbs_jobs']} Gibbs jobs"
+        )
+        rep = compare_estimate_files(os.path.join(work, "gibbs_main.txt"),
+                                     os.path.join(work, "gibbs_main_cpu.txt"), RTOL, ATOL_OUT)
+        gibbs_rep = compare.compare_gibbs_files(
+            os.path.join(work, "gibbs_main_gibbs.txt.gz"),
+            os.path.join(work, "gibbs_main_cpu_gibbs.txt.gz"), N_SE, same_rows=True,
+        )
+        log(
+            f"phase 9: -n 100 main path, cuda vs cpu: .txt {rep['rows']} rows within rtol {RTOL}; "
+            f"_gibbs.txt.gz {gibbs_rep['rows']} rows, {gibbs_rep['outside']} outside "
+            f"{N_SE:.0f} se (allowed {gibbs_rows_allowed(gibbs_rep['rows'])}), worst "
+            f"{gibbs_rep['max_se']:.2f} se"
+        )
+        if gibbs_rep["outside"] > gibbs_rows_allowed(gibbs_rep["rows"]):
+            raise AssertionError("-n 100 main path: Gibbs sample means differ across devices")
+        gibbs_launches = runs["main"][1]["gibbs_launches"]
+        posterior_launches = runs["haplotypes"][1]["posterior_launches"]
+
+    # Phases 7 and 8: the two Gibbs samplers.
+    gibbs = phase_gibbs_kernel(torch, device, gibbs_captured)
+    posterior = phase_posterior_kernel(torch, device, posterior_captured)
+
+
     kernels = [
         {
             "name": em_cuda.KERNEL_NAME,
@@ -656,6 +1165,45 @@ def main() -> int:
             "launches_per_main_path_run": fused_launches,
             "main_path_run": f"transcripts -f, RPVG_TPU_FUSE_EM=1 ({fused_route_tasks} tasks)",
             "slowest_task_ms": fused_em["slowest_task_ms"],
+        },
+        {
+            "name": gibbs_cuda.KERNEL_NAME,
+            "route": "cuda",
+            "source": "rpvg_tpu_torch/csrc/gibbs_readcount.cu",
+            "replaces": "rpvg_tpu/infer/readcount_gibbs.py:79",
+            "launches": gibbs_launches,
+            "max_abs_err": gibbs["max_abs_err"],
+            "ms": gibbs["ms"],
+            "plain_ms": gibbs["plain_ms"],
+            "bound_ms": gibbs["bound_ms"],
+            "bound_by": gibbs["bound_by"],
+            "library_ms": None,
+            "launches_per_main_path_run": gibbs_launches,
+            "main_path_run": "haplotype-transcripts -f -n 100",
+            "diverged_jobs": gibbs["diverged_jobs"],
+            "main_path_jobs": gibbs["main_path_jobs"],
+            "main_path_jobs_ms": gibbs["main_path_jobs_ms"],
+            "main_path_jobs_bound_ms": gibbs["main_path_jobs_bound_ms"],
+            "main_path_slowest_job_ms": gibbs["main_path_slowest_job_ms"],
+        },
+        {
+            "name": posterior_gibbs_cuda.KERNEL_NAME,
+            "route": "cuda",
+            "source": "rpvg_tpu_torch/csrc/gibbs_posterior.cu",
+            "replaces": "rpvg_tpu/infer/posteriors.py:661",
+            "launches": posterior_launches,
+            "max_abs_err": posterior["max_abs_err"],
+            "ms": posterior["ms"],
+            "plain_ms": posterior["plain_ms"],
+            "bound_ms": posterior["bound_ms"],
+            "bound_by": posterior["bound_by"],
+            "library_ms": None,
+            "launches_per_main_path_run": posterior_launches,
+            "main_path_run": "haplotypes --use-hap-gibbs",
+            "diverged_clusters": posterior["diverged_clusters"],
+            "main_path_clusters": posterior["main_path_clusters"],
+            "main_path_clusters_ms": posterior["main_path_clusters_ms"],
+            "main_path_clusters_bound_ms": posterior["main_path_clusters_bound_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

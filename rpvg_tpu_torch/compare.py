@@ -87,3 +87,51 @@ def check_estimate_file(path: str) -> int:
             if not _is_text_column(name) and not math.isfinite(float(field)):
                 raise OutputMismatch(f"{path} line {line_no}: {name} = {field}")
     return len(rows)
+
+
+def read_gibbs_file(path: str) -> Tuple[List[str], Dict[Tuple[str, str], List[float]]]:
+    """Header and rows of a ``_gibbs.txt.gz`` file: (Name, ClusterID) ->
+    the row's read-count samples."""
+    import gzip
+
+    with gzip.open(path, "rt") as handle:
+        lines = handle.read().splitlines()
+    if not lines:
+        raise OutputMismatch(f"{path} is empty")
+    rows = {}
+    for line in lines[1:]:
+        fields = line.split("\t")
+        rows[(fields[0], fields[1])] = [float(v) for v in fields[2:]]
+    return lines[0].split("\t"), rows
+
+
+def compare_gibbs_files(path: str, reference: str, n_se: float, same_rows: bool) -> Dict:
+    """Distributional comparison of two ``_gibbs.txt.gz`` files: the same
+    header, and with ``same_rows`` the same rows (names and ClusterIDs);
+    over the rows both have, each row's sample mean against the
+    reference's within ``n_se`` standard errors of the difference (the
+    two sample variances over their counts).  Raises OutputMismatch on a
+    differing header or row set; returns the rows, the rows outside the
+    bound and the largest difference in standard errors."""
+    import numpy as np
+
+    header, rows = read_gibbs_file(path)
+    ref_header, ref_rows = read_gibbs_file(reference)
+    if header != ref_header:
+        raise OutputMismatch(f"gibbs headers differ: {header[:3]} vs {ref_header[:3]}")
+    if same_rows and list(rows) != list(ref_rows):
+        raise OutputMismatch(f"gibbs rows differ: {len(rows)} vs {len(ref_rows)}")
+    common = [key for key in rows if key in ref_rows]
+    outside = 0
+    worst = 0.0
+    for key in common:
+        a, b = np.asarray(rows[key]), np.asarray(ref_rows[key])
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            raise OutputMismatch(f"gibbs row {key}: not finite")
+        se = math.sqrt(a.var() / a.size + b.var() / b.size)
+        diff = abs(a.mean() - b.mean())
+        if diff > n_se * se + 1e-9 * max(1.0, abs(b.mean())):
+            outside += 1
+        if se > 0:
+            worst = max(worst, diff / se)
+    return {"rows": len(common), "outside": outside, "max_se": worst}

@@ -1,27 +1,34 @@
 """Whole-population batched inference of the four models on one device
-(counterpart of ``rpvg_tpu/infer/batched_models.py``), without Gibbs
-sampling.
+(counterpart of ``rpvg_tpu/infer/batched_models.py``).
 
 ``haplotype-transcripts`` (collapsed groups, ploidy 2) is the staged
 route of ``batched_haplotype_transcripts`` (``RPVG_TPU_FUSED_NESTED=0``
-in the JAX package), five phases over every cluster at once:
+in the JAX package), five phases over every cluster at once, and a sixth
+with read-count Gibbs sampling (``-n``):
 
 * A (host): grouped probability matrices, one threaded native call;
-* B (device): diploid pair scoring, selection on the host;
+* B (device): diploid pair scoring, selection on the host; or, under
+  ``--use-hap-gibbs``, the collapsed Gibbs sampler over the pair scores;
 * C (host): subset selection and the EM task matrices;
 * D (device): one EM run over every (cluster, subset) task;
+* D2 (device): read-count Gibbs sampling of the subsets that the host
+  allocates samples to, on the task matrices phase D packed;
 * E (host): posterior-weighted combination per cluster.
 
 The other models run a subset of the same phases:
 
-* ``transcripts``: A (noise-normalised matrices), D, E (abundances);
+* ``transcripts``: A (noise-normalised matrices), D, D2, E (abundances);
 * ``strains``: C (greedy minimum path cover per cluster and the cover
-  sub-matrices, the staged route of ``batched_strains``), D, E;
+  sub-matrices, the staged route of ``batched_strains``), D, D2, E;
 * ``haplotypes`` at ploidy 2: A (matrices), B, E (posteriors).
 
-The fused native routes of the JAX package (one C++ call for the whole
-nested chain, or for the strains host half and its EM) are not ported:
-on the card the staged device routes are the ones to measure first.
+Random keys replay the JAX package's per-cluster streams exactly (the
+port's threefry, :mod:`rpvg_tpu_torch.prng`): a cluster's keys are
+fold_in(seed, rank) split in a chain, and the posterior sampler takes
+the first.  The fused native routes of the JAX package (one C++ call for
+the whole nested chain, or for the strains host half and its EM) are not
+ported: on the card the staged device routes are the ones to measure
+first.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from rpvg_tpu_torch import prng
 from rpvg_tpu_torch.constants import HAPLOTYPES_MIN_REL_LIKELIHOOD
 from rpvg_tpu_torch.infer.matrices import (
     add_noise_and_normalize,
@@ -43,20 +51,25 @@ from rpvg_tpu_torch.infer.matrices import (
     total_read_count,
 )
 from rpvg_tpu_torch.device import synchronize
-from rpvg_tpu_torch.infer.batching import run_batched_em
+from rpvg_tpu_torch.infer.batching import run_batched_em_packed
 from rpvg_tpu_torch.infer.estimators import (
     MinimumPathAbundanceEstimator,
     NestedPathAbundanceEstimator,
     PathAbundanceEstimator,
     PathGroupPosteriorEstimator,
 )
-from rpvg_tpu_torch.infer.posteriors import diploid_posteriors_batched
+from rpvg_tpu_torch.infer.posteriors import (
+    diploid_posteriors_batched,
+    path_group_posteriors_gibbs_batched,
+)
+from rpvg_tpu_torch.infer.readcount_gibbs import run_batched_gibbs
 
 PHASES = (
     ("A", "grouped matrices"),
     ("B", "diploid posteriors"),
     ("C", "subset selection"),
     ("D", "batched EM"),
+    ("D2", "batched Gibbs"),
     ("E", "combine"),
 )
 
@@ -84,14 +97,13 @@ def _flat_group_spec(groups: List[List[int]]) -> Tuple[np.ndarray, int]:
 
 
 def supports_batched_nested(estimator) -> bool:
-    """Collapsed-group, ploidy-2, non-Gibbs nested inference: the one
-    configuration batched_haplotype_transcripts runs."""
+    """Collapsed-group, ploidy-2 nested inference, with or without
+    Gibbs sampling: the configurations batched_haplotype_transcripts
+    runs."""
     return (
         isinstance(estimator, NestedPathAbundanceEstimator)
         and estimator.infer_collapsed
         and estimator.group_size == 2
-        and not estimator.use_group_post_gibbs
-        and estimator.num_gibbs_samples == 0
     )
 
 
@@ -124,17 +136,20 @@ class _PhaseClock:
         self.t0 = now
 
 
-def batched_haplotype_transcripts(estimator, cluster_data, device: torch.device) -> Dict:
+def batched_haplotype_transcripts(
+    estimator, cluster_data, device: torch.device, rng_seed: int = 0, ranks=None
+) -> Dict:
     """Batched collapsed-group nested inference on ``device``; mutates
-    the estimates in cluster_data in place.  Returns the seconds of
-    phases A-E (``phase_seconds``), the number of clusters scored in
-    phase B (``scored_clusters``) and of EM tasks in phase D
-    (``em_tasks``)."""
+    the estimates in cluster_data in place.  ``ranks`` maps the
+    cluster_data index to the cluster's rank (identity when None), which
+    with ``rng_seed`` keys its random streams.  Returns the seconds of
+    phases A-E and D2 (``phase_seconds``), the number of clusters scored
+    in phase B (``scored_clusters``), of EM tasks in phase D
+    (``em_tasks``) and of Gibbs jobs in phase D2 (``gibbs_jobs``)."""
     if not supports_batched_nested(estimator):
-        raise NotImplementedError(
-            "only collapsed, ploidy-2, non-Gibbs haplotype-transcripts is ported"
-        )
+        raise NotImplementedError("only collapsed, ploidy-2 haplotype-transcripts is ported")
     clock = _PhaseClock(device)
+    rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
     # Object writers only: the native output composer reads columnar
     # streams that only the fused native route produces.
     estimator._columnar_outputs = None
@@ -171,10 +186,18 @@ def batched_haplotype_transcripts(estimator, cluster_data, device: torch.device)
             inputs.append((g_probs, g_noise, g_counts, source_counts))
     clock.lap(*PHASES[0])
 
-    # Phase B (device): dense diploid scoring for every cluster.
-    posterior_results = _group_posteriors_batched(
-        inputs, estimator.group_size, estimator.min_hap_prob, device
-    )
+    # Phase B (device): dense diploid scoring for every cluster, or the
+    # collapsed Gibbs sampler under --use-hap-gibbs (consuming each
+    # cluster's first key, as the per-cluster estimator does).
+    if estimator.use_group_post_gibbs:
+        posterior_results = path_group_posteriors_gibbs_batched(
+            inputs, estimator.group_size,
+            prng.first_keys(rng_seed, [rank_of(ci) for ci, _ in meta]), device,
+        )
+    else:
+        posterior_results = _group_posteriors_batched(
+            inputs, estimator.group_size, estimator.min_hap_prob, device
+        )
     clock.lap(*PHASES[1])
 
     # Phase C (host): subset selection, then EM task matrices for every
@@ -244,39 +267,142 @@ def batched_haplotype_transcripts(estimator, cluster_data, device: torch.device)
 
     # Phase D (device): one EM run over every subset task.
     em_inputs = [(task["matrix"], task["counts"]) for _, task in all_tasks]
-    em_results = run_batched_em(
+    em_results, packed = run_batched_em_packed(
         em_inputs, estimator.max_em_its, estimator.max_rel_em_conv, device
     )
     clock.lap(PHASES[3][0], f"{PHASES[3][1]} ({len(all_tasks)} tasks)")
 
-    # Phase E (host): posterior-weighted combination per cluster.
     per_cluster: Dict[int, List] = {}
     for (ci, _), result in zip(all_tasks, em_results):
         per_cluster.setdefault(ci, []).append(result)
+
+    # Phase D2 (device): read-count Gibbs per selected subset; the key
+    # chain continues past the key phase B consumed.
+    gibbs_jobs = 0
+    if estimator.num_gibbs_samples > 0:
+        task_index = {id(task): i for i, (_, task) in enumerate(all_tasks)}
+        key_base = 1 if estimator.use_group_post_gibbs else 0
+        gibbs_jobs = _nested_gibbs(
+            estimator, cluster_data, cluster_tasks, per_cluster, rng_seed, rank_of,
+            key_base, device, packed, task_index,
+        )
+        clock.lap(PHASES[4][0], f"{PHASES[4][1]} ({gibbs_jobs} jobs)")
+
+    # Phase E (host): posterior-weighted combination per cluster.
     for ci, tasks in cluster_tasks.items():
         est = cluster_data[ci][0]
         estimator.combine_subset_tasks(est, tasks, per_cluster.get(ci, []))
-    clock.lap(*PHASES[4])
+    clock.lap(*PHASES[5])
     return {
         "phase_seconds": clock.seconds,
         "scored_clusters": len(meta),
         "em_tasks": len(all_tasks),
+        "gibbs_jobs": gibbs_jobs,
     }
 
 
+def _nested_gibbs(
+    estimator, cluster_data, cluster_tasks, per_cluster, rng_seed, rank_of, key_base,
+    device, packed, task_index,
+) -> int:
+    """Phase D2 of the nested driver (``_nested_em_and_gibbs`` of the
+    JAX package, ``batched_models.py:1346-1442``): per cluster the host
+    allocates the -n samples over its subsets by sequential binomial
+    thinning from the cluster's numpy stream, each subset with samples is
+    a job keyed by the cluster's next key (after the ``key_base`` keys
+    phase B took), and every job runs in one batched sampler call.
+    Attaches the samples; returns the number of jobs."""
+    jobs = []  # (ci, key index in cluster, task, abundances, noise count, samples)
+    key_ranks = []
+    max_depth = 0
+    for ci, tasks in cluster_tasks.items():
+        np_rng = np.random.default_rng((rng_seed, rank_of(ci)))
+        remaining_gibbs = estimator.num_gibbs_samples
+        remaining_prob = 1.0
+        key_count = 0
+        for task, (abundances, noise_count) in zip(tasks, per_cluster.get(ci, [])):
+            if remaining_gibbs > 0:
+                n_here = int(
+                    np_rng.binomial(
+                        remaining_gibbs, min(1.0, task["subset_prob"] / remaining_prob)
+                    )
+                )
+                remaining_gibbs -= n_here
+                remaining_prob -= task["subset_prob"]
+                if n_here > 0:
+                    jobs.append((ci, key_count, task, abundances, noise_count, n_here))
+                    key_count += 1
+        if key_count:
+            key_ranks.append(ci)
+            max_depth = max(max_depth, key_base + key_count)
+    if not jobs:
+        return 0
+
+    chains = prng.key_chains(rng_seed, [rank_of(ci) for ci in key_ranks], max_depth)
+    chain_of = {ci: chains[i] for i, ci in enumerate(key_ranks)}
+    inputs = [
+        (task["matrix"], task["counts"], np.asarray(abundances), noise_count,
+         float(task["counts"].sum()))
+        for _, _, task, abundances, noise_count, _ in jobs
+    ]
+    keys = [chain_of[ci][key_base + key_idx] for ci, key_idx, _, _, _, _ in jobs]
+    samples = [job[5] for job in jobs]
+    reuse = None
+    if packed is not None:
+        reuse = (packed, [task_index[id(job[2])] for job in jobs])
+    results = run_batched_gibbs(
+        inputs, keys, samples, estimator.gibbs_thin_its, 1.0, device, packed=reuse
+    )
+    for (ci, _, task, _, _, _), (noise_samples, path_samples) in zip(jobs, results):
+        _attach_gibbs_samples(cluster_data[ci][0], task["collapsed"], noise_samples, path_samples)
+    return len(jobs)
+
+
+def _attach_gibbs_samples(est, path_ids, noise_samples, path_samples) -> None:
+    from .estimates import CountSamples
+
+    samples = CountSamples(path_ids=list(path_ids))
+    samples.noise_samples = list(map(float, noise_samples))
+    samples.abundance_samples = list(map(float, path_samples.reshape(-1)))
+    est.gibbs_read_count_samples.append(samples)
+
+
 def supports_batched_transcripts(estimator) -> bool:
-    """Non-Gibbs ``transcripts`` inference."""
-    return type(estimator) is PathAbundanceEstimator and estimator.num_gibbs_samples == 0
+    """``transcripts`` inference, with or without Gibbs sampling."""
+    return type(estimator) is PathAbundanceEstimator
 
 
-def batched_transcripts(estimator, cluster_data, device: torch.device) -> Dict:
+def _first_key_gibbs(estimator, cluster_data, meta, gibbs_inputs, path_ids, rng_seed, rank_of,
+                     device, packed) -> int:
+    """One sampler job per cluster of ``meta``, keyed by the cluster's
+    first key (``batched_transcripts`` / ``batched_strains`` of the JAX
+    package), on the EM task set phase D packed; attaches the samples and
+    returns the number of jobs."""
+    if estimator.num_gibbs_samples <= 0 or not meta:
+        return 0
+    keys = prng.first_keys(rng_seed, [rank_of(ci) for ci in meta])
+    reuse = None if packed is None else (packed, np.arange(len(meta)))
+    results = run_batched_gibbs(
+        gibbs_inputs, keys, estimator.num_gibbs_samples, estimator.gibbs_thin_its, 1.0,
+        device, packed=reuse,
+    )
+    for ci, ids, (noise_samples, path_samples) in zip(meta, path_ids, results):
+        _attach_gibbs_samples(cluster_data[ci][0], ids, noise_samples, path_samples)
+    return len(meta)
+
+
+def batched_transcripts(
+    estimator, cluster_data, device: torch.device, rng_seed: int = 0, ranks=None
+) -> Dict:
     """Batched ``transcripts`` inference on ``device`` (``batched_
-    transcripts`` of the JAX package without Gibbs): one EM run over
-    every cluster.  Mutates the estimates in cluster_data in place;
-    returns ``phase_seconds`` (A, D, E) and ``em_tasks``."""
+    transcripts`` of the JAX package): one EM run over every cluster,
+    then with -n one Gibbs run over every cluster.  Mutates the
+    estimates in cluster_data in place; returns ``phase_seconds`` (A, D,
+    D2 with -n, E), ``em_tasks`` and ``gibbs_jobs``."""
     if not supports_batched_transcripts(estimator):
-        raise NotImplementedError("only non-Gibbs transcripts is ported")
+        raise NotImplementedError("only transcripts is ported here")
     clock = _PhaseClock(device)
+    rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
     inputs = []
     meta = []
     for ci, (est, cluster_probs) in enumerate(cluster_data):
@@ -290,7 +416,7 @@ def batched_transcripts(estimator, cluster_data, device: torch.device) -> Dict:
         meta.append(ci)
     clock.lap("A", "noise-normalised matrices")
 
-    em_results = run_batched_em(
+    em_results, packed = run_batched_em_packed(
         inputs, estimator.max_em_its, estimator.max_rel_em_conv, device
     )
     clock.lap("D", f"batched EM ({len(inputs)} tasks)")
@@ -299,27 +425,40 @@ def batched_transcripts(estimator, cluster_data, device: torch.device) -> Dict:
         est = cluster_data[ci][0]
         est.abundances = list(map(float, abundances))
         est.noise_count = noise_count
+
+    gibbs_jobs = _first_key_gibbs(
+        estimator, cluster_data, meta,
+        [
+            (probs, counts, np.asarray(abundances), noise_count, cluster_data[ci][0].total_count)
+            for (probs, counts), (abundances, noise_count), ci in zip(inputs, em_results, meta)
+        ],
+        [range(len(cluster_data[ci][0].path_group_sets)) for ci in meta],
+        rng_seed, rank_of, device, packed,
+    )
+    if gibbs_jobs:
+        clock.lap("D2", f"batched Gibbs ({gibbs_jobs} jobs)")
     clock.lap("E", "abundances")
-    return {"phase_seconds": clock.seconds, "em_tasks": len(inputs)}
+    return {"phase_seconds": clock.seconds, "em_tasks": len(inputs), "gibbs_jobs": gibbs_jobs}
 
 
 def supports_batched_strains(estimator) -> bool:
-    """Non-Gibbs ``strains`` inference."""
-    return (
-        isinstance(estimator, MinimumPathAbundanceEstimator)
-        and estimator.num_gibbs_samples == 0
-    )
+    """``strains`` inference, with or without Gibbs sampling."""
+    return isinstance(estimator, MinimumPathAbundanceEstimator)
 
 
-def batched_strains(estimator, cluster_data, device: torch.device) -> Dict:
+def batched_strains(
+    estimator, cluster_data, device: torch.device, rng_seed: int = 0, ranks=None
+) -> Dict:
     """Batched ``strains`` inference on ``device`` (the staged route of
-    ``batched_strains`` without Gibbs): the greedy cover and its
-    sub-matrix per cluster on the host, then one EM run over every
-    cover.  Mutates the estimates in cluster_data in place; returns
-    ``phase_seconds`` (C, D, E) and ``em_tasks``."""
+    ``batched_strains``): the greedy cover and its sub-matrix per cluster
+    on the host, then one EM run over every cover, then with -n one Gibbs
+    run over every cover.  Mutates the estimates in cluster_data in
+    place; returns ``phase_seconds`` (C, D, D2 with -n, E), ``em_tasks``
+    and ``gibbs_jobs``."""
     if not supports_batched_strains(estimator):
-        raise NotImplementedError("only non-Gibbs strains is ported")
+        raise NotImplementedError("only strains is ported here")
     clock = _PhaseClock(device)
+    rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
     tasks = []
     meta = []
     for ci, (est, cluster_probs) in enumerate(cluster_data):
@@ -333,7 +472,7 @@ def batched_strains(estimator, cluster_data, device: torch.device) -> Dict:
         meta.append(ci)
     clock.lap("C", "minimum path covers")
 
-    em_results = run_batched_em(
+    em_results, packed = run_batched_em_packed(
         [(task["matrix"], task["counts"]) for task in tasks],
         estimator.max_em_its,
         estimator.max_rel_em_conv,
@@ -341,30 +480,41 @@ def batched_strains(estimator, cluster_data, device: torch.device) -> Dict:
     )
     clock.lap("D", f"batched EM ({len(tasks)} tasks)")
 
+    gibbs_jobs = _first_key_gibbs(
+        estimator, cluster_data, meta,
+        [
+            (task["matrix"], task["counts"], np.asarray(abundances), noise_count, task["total"])
+            for task, (abundances, noise_count) in zip(tasks, em_results)
+        ],
+        [task["min_cover"] for task in tasks], rng_seed, rank_of, device, packed,
+    )
+    if gibbs_jobs:
+        clock.lap("D2", f"batched Gibbs ({gibbs_jobs} jobs)")
+
     for ci, task, (abundances, noise_count) in zip(meta, tasks, em_results):
         estimator.apply_cover_result(cluster_data[ci][0], task, abundances, noise_count)
     clock.lap("E", "cover abundances")
-    return {"phase_seconds": clock.seconds, "em_tasks": len(tasks)}
+    return {"phase_seconds": clock.seconds, "em_tasks": len(tasks), "gibbs_jobs": gibbs_jobs}
 
 
 def supports_batched_haplotypes(estimator) -> bool:
-    """Non-Gibbs ``haplotypes`` inference at ploidy 2."""
-    return (
-        isinstance(estimator, PathGroupPosteriorEstimator)
-        and estimator.ploidy == 2
-        and not estimator.use_hap_gibbs
-    )
+    """``haplotypes`` inference at ploidy 2, with or without Gibbs."""
+    return isinstance(estimator, PathGroupPosteriorEstimator) and estimator.ploidy == 2
 
 
-def batched_haplotypes(estimator, cluster_data, device: torch.device) -> Dict:
+def batched_haplotypes(
+    estimator, cluster_data, device: torch.device, rng_seed: int = 0, ranks=None
+) -> Dict:
     """Batched ``haplotypes`` inference on ``device`` (``batched_
-    haplotypes`` of the JAX package at ploidy 2 without Gibbs): dense
-    diploid pair scoring over every cluster.  Mutates the estimates in
-    cluster_data in place; returns ``phase_seconds`` (A, B, E) and
-    ``scored_clusters``."""
+    haplotypes`` of the JAX package at ploidy 2): dense diploid pair
+    scoring over every cluster, then selection on the host, or under
+    --use-hap-gibbs the collapsed Gibbs sampler keyed by each cluster's
+    first key.  Mutates the estimates in cluster_data in place; returns
+    ``phase_seconds`` (A, B, E) and ``scored_clusters``."""
     if not supports_batched_haplotypes(estimator):
-        raise NotImplementedError("only non-Gibbs, ploidy-2 haplotypes is ported")
+        raise NotImplementedError("only ploidy-2 haplotypes is ported")
     clock = _PhaseClock(device)
+    rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
     inputs = []
     meta = []
     for ci, (est, cluster_probs) in enumerate(cluster_data):
@@ -376,7 +526,11 @@ def batched_haplotypes(estimator, cluster_data, device: torch.device) -> Dict:
         meta.append(ci)
     clock.lap("A", "probability matrices")
 
-    results = diploid_posteriors_batched(inputs, HAPLOTYPES_MIN_REL_LIKELIHOOD, device)
+    if estimator.use_hap_gibbs:
+        keys = prng.first_keys(rng_seed, [rank_of(ci) for ci in meta])
+        results = path_group_posteriors_gibbs_batched(inputs, estimator.ploidy, keys, device)
+    else:
+        results = diploid_posteriors_batched(inputs, HAPLOTYPES_MIN_REL_LIKELIHOOD, device)
     clock.lap("B", "diploid posteriors")
 
     for ci, (groups, posteriors) in zip(meta, results):

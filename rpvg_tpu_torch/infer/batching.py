@@ -17,11 +17,15 @@ device state:
 Either way CUDA tensors go to a kernel and CPU tensors to its plain
 version, and sub-threshold mass is folded on the host, returning the
 ``(path read counts, noise count)`` contract of ``gather_em_device``.
+On the CPU, :func:`run_batched_em` takes the JAX package's own CPU
+route when the native library is loaded: :func:`run_native_em` (a
+verbatim copy), whose results are bitwise the JAX package's, so that
+Gibbs chains started from them draw the same samples.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +73,115 @@ def em_postprocess(fracs: np.ndarray, total: float) -> Tuple[np.ndarray, float]:
     path_counts = path_counts.copy()
     path_counts[low] = 0.0
     return path_counts, noise_count
+
+
+def run_native_em(
+    cluster_inputs: Sequence[Tuple[np.ndarray, np.ndarray]],
+    max_em_its: int,
+    max_rel_em_conv: float,
+    n_threads: int = 0,
+    resume_state=None,
+    concat=None,
+) -> List[Tuple[np.ndarray, float]]:
+    """Ragged batched EM through the C++ kernel (CPU speed path): no
+    padding, no shape buckets, per-cluster loops on worker threads —
+    bitwise identical to calling the kernel per cluster.  Returns the
+    same (path read counts, noise count) contract as run_batched_em.
+
+    `resume_state`: optional (init_fracs list (C_i+... = width per
+    cluster), conv_its array) — continues a bounded run from its exit
+    state bitwise-identically (escalated tasks skip re-running the
+    budget).
+
+    `concat`: optional (probs_flat, counts_flat) when the caller's
+    cluster_inputs are already in-order views over contiguous streams
+    (the fused kernel's escalated-task emission) — skips the Python
+    per-cluster concatenation, which dominates this wrapper's cost."""
+    import ctypes
+    import os
+
+    from ..native import load_library
+
+    lib = load_library()
+    n = len(cluster_inputs)
+    n_rows = np.array([p.shape[0] for p, _ in cluster_inputs], dtype=np.int64)
+    n_cols = np.array([p.shape[1] for p, _ in cluster_inputs], dtype=np.int64)
+    mat_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_rows * n_cols, out=mat_offsets[1:])
+    row_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_rows, out=row_offsets[1:])
+    col_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_cols, out=col_offsets[1:])
+
+    if concat is not None:
+        probs_concat = np.ascontiguousarray(concat[0], dtype=np.float64).ravel()
+        counts_concat = np.ascontiguousarray(concat[1], dtype=np.float64)
+        if probs_concat.size != int(mat_offsets[-1]) or counts_concat.size != int(
+            row_offsets[-1]
+        ):
+            raise ValueError(
+                "concat streams do not cover cluster_inputs exactly: "
+                f"{probs_concat.size}/{int(mat_offsets[-1])} matrix elems, "
+                f"{counts_concat.size}/{int(row_offsets[-1])} rows"
+            )
+    else:
+        probs_concat = (
+            np.concatenate(
+                [np.ascontiguousarray(p, dtype=np.float64).ravel() for p, _ in cluster_inputs]
+            )
+            if n
+            else np.empty(0, dtype=np.float64)
+        )
+        counts_concat = (
+            np.concatenate([np.asarray(c, dtype=np.float64) for _, c in cluster_inputs])
+            if n
+            else np.empty(0, dtype=np.float64)
+        )
+    out_counts = np.empty(max(0, int(col_offsets[-1]) - n), dtype=np.float64)
+    out_noise = np.empty(n, dtype=np.float64)
+
+    if n_threads <= 0:
+        from ..native import thread_budget
+
+        n_threads = thread_budget()
+    as_f64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))  # noqa: E731
+    as_i64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))  # noqa: E731
+    if not getattr(lib, "_em_counts_configured", False):
+        lib.rpvg_em_ragged_counts_resume.restype = None
+        lib.rpvg_em_ragged_counts_resume.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_double, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+        ]
+        lib._em_counts_configured = True
+    init_fracs_ptr = ctypes.POINTER(ctypes.c_double)()
+    init_conv_ptr = ctypes.POINTER(ctypes.c_int64)()
+    if resume_state is not None:
+        init_fracs, init_conv = resume_state
+        init_fracs = np.ascontiguousarray(init_fracs, dtype=np.float64)
+        init_conv = np.ascontiguousarray(init_conv, dtype=np.int64)
+        assert init_fracs.size == int(col_offsets[-1])
+        assert init_conv.size == n
+        init_fracs_ptr = as_f64(init_fracs)
+        init_conv_ptr = as_i64(init_conv)
+    lib.rpvg_em_ragged_counts_resume(
+        as_f64(probs_concat), as_f64(counts_concat),
+        as_i64(mat_offsets), as_i64(row_offsets), as_i64(col_offsets),
+        as_i64(n_rows), as_i64(n_cols), n,
+        int(max_em_its), float(max_rel_em_conv), int(n_threads),
+        init_fracs_ptr, init_conv_ptr,
+        as_f64(out_counts), as_f64(out_noise),
+    )
+
+    results: List[Tuple[np.ndarray, float]] = []
+    for i in range(n):
+        path_counts = out_counts[col_offsets[i] - i : col_offsets[i + 1] - (i + 1)]
+        results.append((path_counts, float(out_noise[i])))
+    return results
 
 
 def native_em_available() -> bool:
@@ -136,18 +249,36 @@ def run_batched_em(
     (path read counts, noise count) with the reference's sub-threshold
     folding, done in float64 on the host exactly like the native
     kernel's tail."""
+    return run_batched_em_packed(cluster_inputs, max_em_its, max_rel_em_conv, device)[0]
+
+
+def run_batched_em_packed(
+    cluster_inputs: Sequence[Tuple[np.ndarray, np.ndarray]],
+    max_em_its: int,
+    max_rel_em_conv: float,
+    device: torch.device,
+) -> Tuple[List[Tuple[np.ndarray, float]], Optional[RaggedTasks]]:
+    """:func:`run_batched_em`, and the ragged task set it packed on the
+    device for the ragged kernel (None on the native or multi-bucket
+    route or with no tasks), so that a later phase reads the same
+    matrices in place.  On the CPU the native kernel runs
+    (:func:`run_native_em`, as in the JAX package, so a CPU run is
+    bitwise the JAX package's) unless ``RPVG_TPU_NATIVE_EM=0`` or the
+    multi-bucket route is asked for; then the kernels' plain versions."""
     if not cluster_inputs:
-        return []
+        return [], None
+    if device.type == "cpu" and not fuse_em_enabled() and native_em_available():
+        return run_native_em(cluster_inputs, max_em_its, max_rel_em_conv), None
     if fuse_em_enabled():
         results: List[Tuple[np.ndarray, float]] = [None] * len(cluster_inputs)
         pending = dispatch_em_device(
             cluster_inputs, range(len(cluster_inputs)), max_em_its, max_rel_em_conv, device
         )
         gather_em_device(pending, cluster_inputs, results)
-        return results
+        return results, None
     tasks = pack_ragged(cluster_inputs, device)
     fracs, _ = em_cuda.em_fixed_point(tasks, max_em_its, max_rel_em_conv)
-    return fold_fractions(fracs, tasks, cluster_inputs)
+    return fold_fractions(fracs, tasks, cluster_inputs), tasks
 
 
 def fold_fractions(

@@ -6,10 +6,11 @@ JAX package's (tests/test_torch_slice.py pins them against their
 originals): the batched model functions in
 :mod:`rpvg_tpu_torch.infer.batched_models` use their host bookkeeping
 (source groups, subset specs, the posterior-weighted combine, the
-strains cover tasks).  The per-cluster ``estimate`` paths they also
-define reach engines that are not ported yet; those names resolve to
-functions that raise ``NotImplementedError``.  There is no
-``ClusterRNG``: the ported configurations draw no random numbers.
+strains cover tasks).  :class:`ClusterRNG` draws its keys from the
+port's own threefry (:mod:`rpvg_tpu_torch.prng`), bit-exact with
+``jax.random``.  The two Gibbs samplers the copied ``estimate`` paths
+name run one cluster through the batched samplers on the CPU; the other
+per-cluster engines are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from rpvg_tpu_torch import prng
 from rpvg_tpu_torch.constants import HAPLOTYPES_MIN_REL_LIKELIHOOD
 from rpvg_tpu_torch.infer.estimates import CountSamples, PathClusterEstimates
 from rpvg_tpu_torch.infer.matrices import (
@@ -43,10 +45,53 @@ def _not_ported(what: str, item: int):
 # Per-cluster engines the copied estimate() methods name; batched
 # inference never calls them.
 em_abundances = _not_ported("per-cluster EM", 14)
-gibbs_read_count_samples = _not_ported("read-count Gibbs sampling", 12)
 path_group_posteriors_diploid = _not_ported("per-cluster diploid posteriors", 14)
 path_group_posteriors_full = _not_ported("full group enumeration", 10)
-path_group_posteriors_gibbs = _not_ported("posterior Gibbs sampling", 13)
+
+
+def gibbs_read_count_samples(
+    probs, counts, abundances, noise_count, total_count, rng_key, num_samples,
+    thin_its=25, gamma=1.0,
+):
+    """One job of :func:`rpvg_tpu_torch.infer.readcount_gibbs.
+    run_batched_gibbs` on the CPU: (noise samples (S,), path samples
+    (S, P))."""
+    from rpvg_tpu_torch.infer.readcount_gibbs import run_batched_gibbs
+
+    [result] = run_batched_gibbs(
+        [(probs, counts, np.asarray(abundances), noise_count, total_count)],
+        [rng_key], int(num_samples), int(thin_its), gamma,
+    )
+    return result
+
+
+def path_group_posteriors_gibbs(probs, noise, counts, path_counts, group_size, rng_key):
+    """One cluster of :func:`rpvg_tpu_torch.infer.posteriors.
+    path_group_posteriors_gibbs_batched` on the CPU: (groups,
+    posteriors)."""
+    import torch
+
+    from rpvg_tpu_torch.infer.posteriors import path_group_posteriors_gibbs_batched
+
+    [result] = path_group_posteriors_gibbs_batched(
+        [(probs, noise, counts, path_counts)], group_size, [rng_key], torch.device("cpu")
+    )
+    return result
+
+
+class ClusterRNG:
+    """Per-cluster random state: a numpy generator for host-side
+    sampling decisions plus a threefry key for the samplers, both
+    derived from (seed, cluster_rank) as in the JAX package (the
+    reference seeds mt19937 with rng_seed + rank, src/main.cpp:976)."""
+
+    def __init__(self, seed: int, cluster_rank: int):
+        self.np_rng = np.random.default_rng((seed, cluster_rank))
+        self._key = prng.fold_in(prng.prng_key(seed), cluster_rank)
+
+    def next_key(self):
+        self._key, sub = prng.split(self._key)
+        return sub
 
 
 _SOURCE_SET_SIG_INDEX: Dict[frozenset, int] = {}

@@ -21,6 +21,14 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from rpvg_tpu_torch.constants import (
+    BURN_ITS_SCALING,
+    GIBBS_CHAIN_SCALING,
+    GIBBS_ITS_SCALING,
+    MIN_BURN_ITS,
+    MIN_GIBBS_CHAINS,
+    MIN_GIBBS_ITS,
+)
 from rpvg_tpu_torch.infer.matrices import calc_path_log_frequencies
 
 # Clusters whose pair scores were computed, by device type, since the
@@ -197,20 +205,10 @@ def _diploid_select(pair_ll: np.ndarray, min_rel_likelihood: float):
     return groups, _normalize_log_posteriors(log_liks[keep])
 
 
-def diploid_posteriors_batched(
-    cluster_inputs,
-    min_rel_likelihood: float,
-    device: torch.device,
-):
-    """Diploid posteriors for many clusters, scored on ``device``.
-
-    cluster_inputs: per cluster (probs (R, P), noise (R,), counts (R,),
-    path_counts).  Clusters are bucketed into padded shapes (rows to
-    powers of four, paths to powers of two) and scored a chunk of at
-    most 2**24 padded pair-tensor elements at a time; a cluster whose
-    padded (R, P, P) tensor exceeds the giant-cluster guard is scored
-    alone in column blocks.  Returns per cluster (group_sets,
-    posteriors)."""
+def _bucket_plan(cluster_inputs):
+    """Clusters by padded (rows to powers of four, paths to powers of
+    two) shape, and the giant clusters whose padded (R, P, P) tensor
+    exceeds the element guard."""
     buckets: Dict[Tuple[int, int], List[int]] = {}
     giant_idx: List[int] = []
     pair_limit = _pair_tensor_limit()
@@ -221,9 +219,13 @@ def diploid_posteriors_batched(
             giant_idx.append(idx)
             continue
         buckets.setdefault((R_pad, P_pad), []).append(idx)
+    return buckets, giant_idx
 
-    results = [None] * len(cluster_inputs)
-    select_jobs = []  # (idx, (P, P) score matrix)
+
+def _score_chunks(cluster_inputs, buckets, device: torch.device):
+    """Yield (cluster indices, (B, P_pad, P_pad) pair scores on
+    ``device``) per chunk of at most 2**24 padded pair-tensor elements
+    of each bucket."""
     for (R_pad, P_pad), indices in buckets.items():
         max_batch = max(1, _BATCH_ELEMENT_LIMIT // max(1, R_pad * P_pad * P_pad))
         for chunk_start in range(0, len(indices), max_batch):
@@ -247,10 +249,31 @@ def diploid_posteriors_batched(
                 torch.from_numpy(log_freqs_pad).to(device),
             )
             _count_scored(pair_ll_dev.device, B)
-            pair_ll = pair_ll_dev.cpu().numpy()
-            for b, idx in enumerate(chunk):
-                P = cluster_inputs[idx][0].shape[1]
-                select_jobs.append((idx, pair_ll[b, :P, :P]))
+            yield chunk, pair_ll_dev
+
+
+def diploid_posteriors_batched(
+    cluster_inputs,
+    min_rel_likelihood: float,
+    device: torch.device,
+):
+    """Diploid posteriors for many clusters, scored on ``device``.
+
+    cluster_inputs: per cluster (probs (R, P), noise (R,), counts (R,),
+    path_counts).  Clusters are bucketed into padded shapes (rows to
+    powers of four, paths to powers of two) and scored a chunk of at
+    most 2**24 padded pair-tensor elements at a time; a cluster whose
+    padded (R, P, P) tensor exceeds the giant-cluster guard is scored
+    alone in column blocks.  Returns per cluster (group_sets,
+    posteriors)."""
+    buckets, giant_idx = _bucket_plan(cluster_inputs)
+    results = [None] * len(cluster_inputs)
+    select_jobs = []  # (idx, (P, P) score matrix)
+    for chunk, pair_ll_dev in _score_chunks(cluster_inputs, buckets, device):
+        pair_ll = pair_ll_dev.cpu().numpy()
+        for b, idx in enumerate(chunk):
+            P = cluster_inputs[idx][0].shape[1]
+            select_jobs.append((idx, pair_ll[b, :P, :P]))
 
     # Giant clusters: per-cluster blocked scoring.
     for idx in giant_idx:
@@ -316,3 +339,291 @@ def _native_diploid_select(score_matrices, min_rel_likelihood: float):
         pairs = out_pairs[2 * base : 2 * (base + kept)].reshape(kept, 2)
         results.append((pairs.tolist(), out_post[base : base + kept]))
     return results
+
+
+# ------------------------------------------------- posterior Gibbs
+
+
+def _native_pair_scores(cluster_inputs):
+    """Raw (P, P) pair log-likelihood matrices per cluster through the
+    native ragged scorer; None when the library is unavailable."""
+    import ctypes
+    import os
+
+    from .batching import native_em_available
+
+    if not native_em_available():
+        return None
+    from ..native import load_library
+
+    lib = load_library()
+    n = len(cluster_inputs)
+    if n == 0:
+        return []
+    n_rows = np.array([p.shape[0] for p, _, _, _ in cluster_inputs], dtype=np.int64)
+    n_cols = np.array([p.shape[1] for p, _, _, _ in cluster_inputs], dtype=np.int64)
+    mat_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_rows * n_cols, out=mat_offsets[1:])
+    row_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_rows, out=row_offsets[1:])
+    col_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_cols, out=col_offsets[1:])
+    out_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_cols * n_cols, out=out_offsets[1:])
+
+    probs_concat = np.concatenate(
+        [np.ascontiguousarray(p, dtype=np.float64).ravel() for p, _, _, _ in cluster_inputs]
+    )
+    noise_concat = np.concatenate(
+        [np.asarray(x, dtype=np.float64) for _, x, _, _ in cluster_inputs]
+    )
+    counts_concat = np.concatenate(
+        [np.asarray(x, dtype=np.float64) for _, _, x, _ in cluster_inputs]
+    )
+    lf_concat = np.concatenate(
+        [calc_path_log_frequencies(pc) for _, _, _, pc in cluster_inputs]
+    )
+    out = np.empty(int(out_offsets[-1]), dtype=np.float64)
+
+    as_f64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))  # noqa: E731
+    as_i64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))  # noqa: E731
+    lib.rpvg_diploid_scores_ragged(
+        as_f64(probs_concat), as_f64(noise_concat), as_f64(counts_concat),
+        as_f64(lf_concat), as_i64(mat_offsets), as_i64(row_offsets),
+        as_i64(col_offsets), as_i64(out_offsets), as_i64(n_rows), as_i64(n_cols),
+        n, int(min(16, os.cpu_count() or 1)), as_f64(out),
+    )
+
+    return [
+        out[out_offsets[i] : out_offsets[i + 1]].reshape(int(n_cols[i]), int(n_cols[i]))
+        for i in range(n)
+    ]
+
+
+def gibbs_iteration_counts(group_size: int, num_paths: int) -> Tuple[int, int, int]:
+    """Chain/burn-in/sample sizing scaled to problem size (reference
+    path_estimator.cpp:4-11,501-503)."""
+    scale = group_size * num_paths
+    chains = MIN_GIBBS_CHAINS + round(GIBBS_CHAIN_SCALING * scale)
+    burn = MIN_BURN_ITS + round(BURN_ITS_SCALING * scale)
+    its = MIN_GIBBS_ITS + round(GIBBS_ITS_SCALING * scale)
+    return chains, burn, its
+
+
+def _posterior_gibbs_native(cluster_inputs, rng_keys):
+    """CPU speed path for diploid posterior Gibbs: pair-score matrices
+    are the cached conditionals (the +lf[other] row constant cancels in
+    the categorical), so chains sample cached rows in C++.  Returns None
+    when the native library is unavailable."""
+    import ctypes
+    import os
+
+    matrices = _native_pair_scores(cluster_inputs)
+    if matrices is None:
+        return None
+    from ..native import load_library
+
+    lib = load_library()
+    n = len(cluster_inputs)
+    sizing = [
+        gibbs_iteration_counts(2, item[0].shape[1]) for item in cluster_inputs
+    ]
+    n_cols = np.array([item[0].shape[1] for item in cluster_inputs], dtype=np.int64)
+    chains = np.array([s[0] for s in sizing], dtype=np.int64)
+    burn = np.array([s[1] for s in sizing], dtype=np.int64)
+    its = np.array([s[2] for s in sizing], dtype=np.int64)
+    score_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_cols * n_cols, out=score_offsets[1:])
+    out_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(chains * its * 2, out=out_offsets[1:])
+    seeds = np.array(
+        [
+            (np.uint64(np.asarray(key).astype(np.uint64)[0]) << np.uint64(32))
+            | np.uint64(np.asarray(key).astype(np.uint64)[1])
+            for key in rng_keys
+        ],
+        dtype=np.uint64,
+    )
+    scores_concat = np.concatenate([m.ravel() for m in matrices])
+    out = np.empty(int(out_offsets[-1]), dtype=np.int32)
+
+    as_i64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))  # noqa: E731
+    lib.rpvg_posterior_gibbs_ragged(
+        scores_concat.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        as_i64(score_offsets), as_i64(n_cols), as_i64(chains), as_i64(burn),
+        as_i64(its), seeds.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        as_i64(out_offsets), n, int(min(16, os.cpu_count() or 1)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+
+    # Normalise + dedup the sampled diplotypes natively (the twin of
+    # np.sort(axis=1) + np.unique(axis=0, return_counts=True), which
+    # dominated this configuration's host time).
+    if not getattr(lib, "_pair_dedup_configured", False):
+        lib.rpvg_pair_dedup_ragged.restype = ctypes.POINTER(ctypes.c_uint8)
+        lib.rpvg_pair_dedup_ragged.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib._pair_dedup_configured = True
+    import struct as _struct
+
+    dd_len = ctypes.c_int64()
+    dd_ptr = lib.rpvg_pair_dedup_ragged(
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        as_i64(out_offsets), n, int(min(16, os.cpu_count() or 1)),
+        ctypes.byref(dd_len),
+    )
+    try:
+        data = ctypes.string_at(dd_ptr, dd_len.value)
+    finally:
+        lib.rpvg_buffer_free(dd_ptr)
+    (n_out,) = _struct.unpack_from("<q", data, 0)
+    assert n_out == n
+    n_unique = np.frombuffer(data, dtype=np.int64, count=n, offset=8)
+    offset = 8 + 8 * n
+    (uniq_total,) = _struct.unpack_from("<q", data, offset)
+    offset += 8
+    pairs_all = np.frombuffer(
+        data, dtype=np.int32, count=2 * uniq_total, offset=offset
+    ).reshape(-1, 2)
+    offset += 8 * uniq_total
+    counts_all = np.frombuffer(data, dtype=np.int64, count=uniq_total, offset=offset)
+    bounds = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_unique, out=bounds[1:])
+
+    results = []
+    for i in range(n):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        groups = pairs_all[lo:hi].tolist()
+        results.append((groups, counts_all[lo:hi] / float(chains[i] * its[i])))
+    return results
+
+
+def _dedup_pairs(samples: np.ndarray, out_offsets: np.ndarray, chains, its):
+    """Per cluster (sorted unique pairs, sample frequencies) of the
+    sampled pairs at ``out_offsets`` (int32 offsets, two per pair): each
+    pair sorted, then counted, through the native
+    ``rpvg_pair_dedup_ragged`` as ``_posterior_gibbs_native`` does."""
+    import ctypes
+    import os
+    import struct
+
+    from rpvg_tpu_torch.native import load_library
+
+    n = len(chains)
+
+    lib = load_library()
+    if not getattr(lib, "_pair_dedup_configured", False):
+        lib.rpvg_pair_dedup_ragged.restype = ctypes.POINTER(ctypes.c_uint8)
+        lib.rpvg_pair_dedup_ragged.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib._pair_dedup_configured = True
+    samples = np.ascontiguousarray(samples, dtype=np.int32)
+    offsets = np.ascontiguousarray(out_offsets, dtype=np.int64)
+    dd_len = ctypes.c_int64()
+    dd_ptr = lib.rpvg_pair_dedup_ragged(
+        samples.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n,
+        int(min(16, os.cpu_count() or 1)), ctypes.byref(dd_len),
+    )
+    try:
+        data = ctypes.string_at(dd_ptr, dd_len.value)
+    finally:
+        lib.rpvg_buffer_free(dd_ptr)
+    n_unique = np.frombuffer(data, dtype=np.int64, count=n, offset=8)
+    offset = 8 + 8 * n
+    (uniq_total,) = struct.unpack_from("<q", data, offset)
+    offset += 8
+    pairs_all = np.frombuffer(data, dtype=np.int32, count=2 * uniq_total, offset=offset).reshape(-1, 2)
+    offset += 8 * uniq_total
+    counts_all = np.frombuffer(data, dtype=np.int64, count=uniq_total, offset=offset)
+    bounds = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_unique, out=bounds[1:])
+    return [
+        (
+            pairs_all[bounds[i] : bounds[i + 1]].tolist(),
+            counts_all[bounds[i] : bounds[i + 1]] / float(chains[i] * its[i]),
+        )
+        for i in range(n)
+    ]
+
+
+def posterior_gibbs_jobs(cluster_inputs, rng_keys, device: torch.device):
+    """The clusters' pair scores on ``device`` (the padded chunks of
+    :func:`_score_chunks`, read in place at their padded row stride;
+    giant clusters scored alone in column blocks) as
+    :class:`~rpvg_tpu_torch.ops.posterior_gibbs_cuda.PosteriorJobs`,
+    sized by :func:`gibbs_iteration_counts` and seeded from the keys."""
+    from rpvg_tpu_torch import prng
+    from rpvg_tpu_torch.ops import posterior_gibbs_cuda
+
+    n = len(cluster_inputs)
+    buckets, giant_idx = _bucket_plan(cluster_inputs)
+    pieces = []
+    offsets = np.zeros(n, dtype=np.int64)
+    strides = np.zeros(n, dtype=np.int64)
+    base = 0
+    for chunk, pair_ll_dev in _score_chunks(cluster_inputs, buckets, device):
+        P_pad = pair_ll_dev.shape[-1]
+        pieces.append(pair_ll_dev.reshape(-1))
+        for b, idx in enumerate(chunk):
+            offsets[idx] = base + b * P_pad * P_pad
+            strides[idx] = P_pad
+        base += pair_ll_dev.numel()
+    for idx in giant_idx:
+        probs, noise, counts, path_counts = cluster_inputs[idx]
+        R, P = probs.shape
+        R_pad, P_pad = _ceil_pow2(R), _ceil_pow2(P)
+        probs_pad = np.zeros((R_pad, P_pad), dtype=np.float64)
+        probs_pad[:R, :P] = probs
+        noise_pad = np.ones(R_pad, dtype=np.float64)
+        noise_pad[:R] = noise
+        counts_pad = np.zeros(R_pad, dtype=np.float64)
+        counts_pad[:R] = counts
+        log_freqs_pad = np.full(P_pad, -np.inf)
+        log_freqs_pad[:P] = calc_path_log_frequencies(path_counts)
+        scores = _pair_scores_blocked(probs_pad, noise_pad, counts_pad, log_freqs_pad, device)
+        _count_scored(device, 1)
+        pieces.append(torch.from_numpy(np.ascontiguousarray(scores[:P, :P])).to(device).reshape(-1))
+        offsets[idx] = base
+        strides[idx] = P
+        base += P * P
+    n_cols = np.array([item[0].shape[1] for item in cluster_inputs], dtype=np.int64)
+    scores_all = torch.cat(pieces) if pieces else torch.zeros(0, dtype=torch.float64, device=device)
+    return posterior_gibbs_cuda.make_jobs(
+        scores_all, offsets, strides, n_cols,
+        [gibbs_iteration_counts(2, int(P)) for P in n_cols],
+        [prng.key_seed(key) for key in rng_keys],
+    )
+
+
+def path_group_posteriors_gibbs_batched(cluster_inputs, group_size, rng_keys, device: torch.device):
+    """Collapsed-Gibbs group posteriors of many clusters on ``device``
+    (cluster_inputs: per cluster (probs (R, P), noise (R,), counts (R,),
+    path_counts); one threefry key per cluster).  Returns per cluster
+    (sorted unique groups, sample frequencies).
+
+    On ``cpu`` the native sampler runs (:func:`_posterior_gibbs_native`,
+    a verbatim copy: the JAX package's bytes), or without the library the
+    plain version; on ``cuda`` the pair scores are computed on the card
+    and sampled there by ``csrc/gibbs_posterior.cu``.  Only group size 2
+    is ported."""
+    from rpvg_tpu_torch.ops import posterior_gibbs_cuda
+
+    if group_size != 2:
+        raise NotImplementedError(
+            f"posterior Gibbs sampling at group size {group_size} is not yet ported "
+            "(ROADMAP queue 1, item 10)"
+        )
+    if not cluster_inputs:
+        return []
+    if device.type == "cpu":
+        native = _posterior_gibbs_native(cluster_inputs, rng_keys)
+        if native is not None:
+            return native
+    jobs = posterior_gibbs_jobs(cluster_inputs, rng_keys, device)
+    samples = posterior_gibbs_cuda.posterior_gibbs(jobs).cpu().numpy()
+    return _dedup_pairs(samples, jobs.host["out_offsets"], jobs.host["n_chains"], jobs.host["n_its"])

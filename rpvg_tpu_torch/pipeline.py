@@ -9,9 +9,10 @@ are copied, not imported, because ``rpvg_tpu.pipeline`` imports jax.
 Only :func:`run_pipeline` and :func:`run_inference_phases` are
 rewritten: the device is passed down explicitly, and there is no
 backend probe, watchdog or ``jax.profiler`` hook.  All four inference
-models are ported without Gibbs sampling, ``haplotypes`` and
-``haplotype-transcripts`` at ploidy 2 (the latter with collapsed
-groups); :func:`unported_reason` names the ROADMAP item of every other
+models are ported, with read-count Gibbs sampling (``-n``),
+``haplotypes`` and ``haplotype-transcripts`` at ploidy 2 (the latter
+with collapsed groups), both with ``--use-hap-gibbs``;
+:func:`unported_reason` names the ROADMAP item of every other
 configuration.
 """
 
@@ -52,13 +53,14 @@ from rpvg_tpu_torch.infer.estimators import make_estimator
 def unported_reason(config: "PipelineConfig", multiprocess: int = 0) -> Optional[str]:
     """Why ``config`` cannot run on the port yet (naming the ROADMAP
     queue-1 item that ports it), or None for a ported configuration."""
-    if config.num_gibbs_samples > 0:
-        return "-n/--num-gibbs-samples > 0 is not yet ported (ROADMAP queue 1, item 12)"
-    if config.use_hap_gibbs:
-        return "--use-hap-gibbs is not yet ported (ROADMAP queue 1, item 13)"
     if config.ind_hap_inference:
         return "--ind-hap-inference is not yet ported (ROADMAP queue 1, item 14)"
     if config.ploidy != 2 and config.inference_model in ("haplotypes", "haplotype-transcripts"):
+        if config.use_hap_gibbs:
+            return (
+                f"--use-hap-gibbs with -y/--ploidy {config.ploidy} is not yet ported "
+                "(ROADMAP queue 1, item 10)"
+            )
         return f"-y/--ploidy {config.ploidy} is not yet ported (ROADMAP queue 1, item 10)"
     if multiprocess > 1:
         return "--multiprocess > 1 is not yet ported (ROADMAP queue 1, item 16)"
@@ -1220,6 +1222,12 @@ def run_inference_phases(
             config.output_prefix + "_probs", config.prob_precision,
             defer_publish=True,
         )
+    gibbs_writer = None
+    if config.num_gibbs_samples > 0 and config.inference_model != "haplotypes":
+        gibbs_writer = writers.ReadCountGibbsSamplesWriter(
+            config.output_prefix + "_gibbs", config.num_gibbs_samples,
+            defer_publish=True,
+        )
 
     try:
         t_phase = time.perf_counter()
@@ -1289,24 +1297,33 @@ def run_inference_phases(
 
         results: List[ClusterResult] = []
         batch_data = []
+        batch_ranks = []
         for rank, (paths, cluster_probs) in cluster_data:
             estimates = PathClusterEstimates()
             estimates.paths = paths
             batch_data.append((estimates, cluster_probs))
+            batch_ranks.append(rank)
             results.append(ClusterResult(rank + 1, estimates))
+        # The rank keys each cluster's random streams (-n, --use-hap-gibbs).
+        seeded = (config.rng_seed, batch_ranks)
         if supports_batched_nested(estimator):
-            inference = batched_haplotype_transcripts(estimator, batch_data, device)
+            inference = batched_haplotype_transcripts(estimator, batch_data, device, *seeded)
         elif supports_batched_strains(estimator):
-            inference = batched_strains(estimator, batch_data, device)
+            inference = batched_strains(estimator, batch_data, device, *seeded)
         elif supports_batched_transcripts(estimator):
-            inference = batched_transcripts(estimator, batch_data, device)
+            inference = batched_transcripts(estimator, batch_data, device, *seeded)
         else:
-            inference = batched_haplotypes(estimator, batch_data, device)
+            inference = batched_haplotypes(estimator, batch_data, device, *seeded)
 
         if prob_writer is not None and prob_texts is None:
             for _, (paths, cluster_probs) in cluster_data:
                 prob_writer.add_cluster(cluster_probs, paths)
             prob_writer.close_async()
+        if gibbs_writer is not None:
+            for result in results:
+                gibbs_writer.add_samples(result.cluster_id, result.estimates)
+                result.estimates.gibbs_read_count_samples = []
+            gibbs_writer.finish_async(fragment_index.unaligned_count)
 
         log(
             f"Inferred path posterior probabilities"
@@ -1317,13 +1334,18 @@ def run_inference_phases(
         t_out = time.perf_counter()
         write_outputs(config, results, fragment_index.unaligned_count)
         output_seconds = time.perf_counter() - t_out
-        if prob_writer is not None:
-            prob_writer.join()
-            prob_writer.publish()
+        # Join both writers before publishing either.
+        for writer in (prob_writer, gibbs_writer):
+            if writer is not None:
+                writer.join()
+        for writer in (prob_writer, gibbs_writer):
+            if writer is not None:
+                writer.publish()
     except BaseException:
         # Failure: no partial outputs under the real filenames.
-        if prob_writer is not None:
-            prob_writer.discard()
+        for writer in (prob_writer, gibbs_writer):
+            if writer is not None:
+                writer.discard()
         _remove_partial_outputs(config)
         raise
     return {

@@ -1,5 +1,6 @@
-"""Seeded EM task sets shaped like the main path's phase D, for holding
-the EM kernels against their plain versions (tests and
+"""Seeded EM task sets shaped like the main path's phase D, read-count
+Gibbs jobs on them and diploid clusters for the posterior sampler, for
+holding the kernels against their plain versions (tests and
 ``chip_smoke.py``).
 
 Each task is a noise-normalised matrix (R, C) whose last column is the
@@ -81,3 +82,84 @@ def padded_block_set(seed: int) -> List[Block]:
             masks[b, :n_cols] = 1.0
         blocks.append((probs, counts, masks))
     return blocks
+
+
+GibbsJob = Tuple[np.ndarray, np.ndarray, np.ndarray, float, float]
+
+
+def gibbs_job(rng: np.random.Generator, probs: np.ndarray, counts: np.ndarray) -> GibbsJob:
+    """A read-count Gibbs job (probs, counts, abundances, noise count,
+    total) on a task, from random EM fractions."""
+    total = float(counts.sum())
+    fracs = rng.dirichlet(np.ones(probs.shape[1]))
+    return probs, counts, fracs[:-1] * total, float(fracs[-1] * total), total
+
+
+def gibbs_job_set(n_jobs: int, seed: int) -> List[GibbsJob]:
+    """``n_jobs`` read-count Gibbs jobs on :func:`em_task_set` tasks, with
+    counts scaled by 1-3 so that some rows draw their trials over a warp
+    (count > 4), followed by :func:`gibbs_edge_jobs`."""
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for probs, counts in em_task_set(n_jobs, seed)[:n_jobs]:
+        jobs.append(gibbs_job(rng, probs, counts * rng.integers(1, 4, size=counts.size)))
+    return jobs + gibbs_edge_jobs(rng)
+
+
+def gibbs_edge_jobs(rng: np.random.Generator) -> List[GibbsJob]:
+    """C = 1 (noise only); rows whose sum is zero; counts of 5-40 (trials
+    drawn over a warp); one row with a count of 10^4 (binomial splits by
+    BTRS); counts of 300-900 over 12 columns (binomial splits by inversion
+    and by BTRS)."""
+    noise_only = (rng.uniform(0.1, 1.0, size=(3, 1)), np.array([2.0, 7.0, 1.0]))
+    zero_rows = rng.dirichlet(np.ones(4), size=6)
+    zero_rows[[1, 4]] = 0.0
+    big = rng.dirichlet(np.ones(5), size=8)
+    huge = np.array([[0.35, 0.25, 0.3, 0.1]])
+    jobs = [
+        gibbs_job(rng, *noise_only),
+        gibbs_job(rng, zero_rows, np.array([1.0, 3.0, 2.0, 1.0, 5.0, 2.0])),
+        gibbs_job(rng, big, rng.integers(5, 40, size=8).astype(np.float64)),
+        gibbs_job(rng, huge, np.array([1e4])),
+    ]
+    split = rng.dirichlet(np.full(12, 0.3), size=5)
+    jobs.append(gibbs_job(rng, split, rng.integers(300, 900, size=5).astype(np.float64)))
+    return jobs
+
+
+PosteriorCluster = Tuple[np.ndarray, np.ndarray, np.ndarray, List[int]]
+
+
+def posterior_cluster_set(n_clusters: int, seed: int, max_paths: int = 28) -> List[PosteriorCluster]:
+    """``n_clusters`` diploid clusters (probs (R, P), noise (R,), counts
+    (R,), path source counts) with P up to ``max_paths`` (the main path's
+    7 isoforms x 4 haplotypes), one of them with a single path."""
+    rng = np.random.default_rng(seed)
+    clusters = []
+    for i in range(n_clusters):
+        P = 1 if i == 0 else int(rng.integers(2, max_paths + 1))
+        R = int(np.clip(round(np.exp(rng.normal(np.log(20.0), 1.0))), 1, 400))
+        probs = rng.random((R, P)) * (rng.random((R, P)) < 0.5)
+        probs[np.arange(R), rng.integers(0, P, size=R)] += rng.random(R)
+        clusters.append(
+            (probs, rng.uniform(1e-4, 0.05, R), rng.geometric(0.4, size=R).astype(np.float64),
+             rng.integers(1, 4, size=P).tolist())
+        )
+    return clusters
+
+
+def gibbs_jobs_on(inputs: List[GibbsJob], device, samples, seed: int):
+    """:class:`rpvg_tpu_torch.ops.gibbs_cuda.GibbsJobs` of ``inputs`` on
+    ``device`` (freshly packed), job i keyed by the i-th key of a split
+    of ``seed``'s key, keeping ``samples[i]`` samples."""
+    from rpvg_tpu_torch import prng
+    from rpvg_tpu_torch.infer.batching import pack_ragged
+    from rpvg_tpu_torch.infer.readcount_gibbs import initial_fractions
+    from rpvg_tpu_torch.ops import gibbs_cuda
+
+    keys = prng.split(prng.prng_key(seed), len(inputs))
+    tasks = pack_ragged([(item[0], item[1]) for item in inputs], device)
+    return gibbs_cuda.make_jobs(
+        tasks, np.arange(len(inputs)), [initial_fractions(item) for item in inputs],
+        [prng.key_seed(key) for key in keys], samples,
+    )

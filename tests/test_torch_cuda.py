@@ -1,5 +1,5 @@
-"""The CUDA EM kernels against their plain PyTorch versions, and the
-models' device halves on the card.  Every test here needs a CUDA device: they are
+"""The CUDA kernels (both EM kernels, both Gibbs samplers) against their
+plain PyTorch versions, and the models' device halves on the card.  Every test here needs a CUDA device: they are
 marked ``gpu`` and skip on a host without one.  The module imports no
 jax (the card's host has none), so on the card it runs without the
 suite's conftest:
@@ -11,10 +11,21 @@ import numpy as np
 import pytest
 import torch
 
-from rpvg_tpu_torch.infer import batching, posteriors
+from rpvg_tpu_torch import prng
+from rpvg_tpu_torch.infer import batching, posteriors, readcount_gibbs
 from rpvg_tpu_torch.infer.batching import fold_fractions, pack_ragged, run_batched_em
-from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
-from rpvg_tpu_torch.testing import edge_case_tasks, em_task_set, padded_block_set, random_task
+from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda, gibbs_cuda, posterior_gibbs_cuda
+from rpvg_tpu_torch.testing import (
+    edge_case_tasks,
+    em_task_set,
+    gibbs_edge_jobs,
+    gibbs_job,
+    gibbs_job_set,
+    gibbs_jobs_on,
+    padded_block_set,
+    posterior_cluster_set,
+    random_task,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -276,3 +287,127 @@ def test_transcripts_slice_on_cuda_matches_cpu(cuda, fuse, tmp_path, monkeypatch
         os.path.join(tmp_path, "cuda.txt"), os.path.join(tmp_path, "cpu.txt"), 1e-6, 1e-6
     )
     assert report["rows"] > 0
+
+
+# ------------------------------------------------ the Gibbs samplers
+
+
+def _over_shared_memory_job():
+    """A job whose P does not fit one block's shared memory (read from
+    global memory), and a small one beside it."""
+    rng = np.random.default_rng(44)
+    big = gibbs_job(rng, *random_task(rng, 3000, 12))
+    return [big, gibbs_job(rng, *random_task(rng, 3, 9))]
+
+
+@pytest.mark.parametrize("case", ["job_set", "edge_jobs", "over_shared_memory"])
+def test_gibbs_readcount_kernel_matches_plain(cuda, case):
+    """Every kept fraction within rtol 1e-9 of the plain version on the
+    same Philox counters."""
+    if case == "job_set":
+        inputs = gibbs_job_set(96, seed=42)
+    elif case == "edge_jobs":
+        inputs = gibbs_edge_jobs(np.random.default_rng(43))
+    else:
+        inputs = _over_shared_memory_job()
+    samples = [3 + i % 4 for i in range(len(inputs))]
+    jobs = gibbs_jobs_on(inputs, cuda, samples, seed=3)
+    plan = gibbs_cuda.plan_launches(jobs.shapes[:, 0], jobs.shapes[:, 1])
+    if case == "over_shared_memory":
+        assert [lc.staged for lc in plan] == [False, True]
+    launches, n_jobs = gibbs_cuda.LAUNCHES, gibbs_cuda.JOBS
+    kernel = gibbs_cuda.gibbs_read_counts(jobs, 5, 1.0)
+    torch.cuda.synchronize()
+    assert (gibbs_cuda.LAUNCHES, gibbs_cuda.JOBS) == (launches + len(plan), n_jobs + len(inputs))
+    plain = gibbs_cuda.gibbs_read_counts_plain(jobs, 5, 1.0)
+    assert gibbs_cuda.LAUNCHES == launches + len(plan)
+    np.testing.assert_allclose(kernel.cpu().numpy(), plain.cpu().numpy(), rtol=1e-9, atol=0)
+    assert bool(torch.isfinite(kernel).all())
+
+
+def test_gibbs_readcount_kernel_prefix_property(cuda):
+    """S and 2S samples: the first S are bitwise the same."""
+    inputs = gibbs_job_set(40, seed=45)
+    short = gibbs_cuda.gibbs_read_counts(gibbs_jobs_on(inputs, cuda, [3] * len(inputs), seed=3), 5, 1.0)
+    long = gibbs_cuda.gibbs_read_counts(gibbs_jobs_on(inputs, cuda, [6] * len(inputs), seed=3), 5, 1.0)
+    cols = np.array([item[0].shape[1] for item in inputs])
+    at_short, at_long = np.cumsum(np.append(0, 3 * cols)), np.cumsum(np.append(0, 6 * cols))
+    for i in range(len(inputs)):
+        width = at_short[i + 1] - at_short[i]
+        assert torch.equal(short[at_short[i] : at_short[i + 1]], long[at_long[i] : at_long[i] + width])
+
+
+def test_gibbs_readcount_job_independent_of_its_launch(cuda):
+    inputs = gibbs_job_set(30, seed=46)
+    together = gibbs_cuda.gibbs_read_counts(gibbs_jobs_on(inputs, cuda, [4] * len(inputs), seed=3), 5, 1.0)
+    keys = prng.split(prng.prng_key(3), len(inputs))
+    i = 7
+    tasks = pack_ragged([(inputs[i][0], inputs[i][1])], cuda)
+    alone = gibbs_cuda.gibbs_read_counts(
+        gibbs_cuda.make_jobs(tasks, [0], [readcount_gibbs.initial_fractions(inputs[i])],
+                             [prng.key_seed(keys[i])], [4]),
+        5, 1.0,
+    )
+    start = 4 * sum(item[0].shape[1] for item in inputs[:i])
+    assert torch.equal(together[start : start + alone.numel()], alone)
+
+
+def test_gibbs_readcount_on_packed_tasks_matches_fresh_upload(cuda):
+    """Phase D2 reads the task set phase D packed (a subset, in another
+    order) and draws what a fresh upload of the same jobs draws."""
+    inputs = gibbs_job_set(20, seed=47)
+    keys = list(prng.split(prng.prng_key(9), len(inputs)))
+    tasks = pack_ragged([(item[0], item[1]) for item in inputs], cuda)
+    picked = [5, 2, 11]
+    reused = readcount_gibbs.run_batched_gibbs(
+        [inputs[i] for i in picked], [keys[i] for i in picked], [2, 3, 1], 4, 1.0, cuda,
+        packed=(tasks, picked),
+    )
+    fresh = readcount_gibbs.run_batched_gibbs(
+        [inputs[i] for i in picked], [keys[i] for i in picked], [2, 3, 1], 4, 1.0, cuda
+    )
+    for (a_noise, a_paths), (b_noise, b_paths) in zip(reused, fresh):
+        assert np.array_equal(a_noise, b_noise) and np.array_equal(a_paths, b_paths)
+
+
+@pytest.mark.parametrize("case", ["cluster_set", "over_shared_memory"])
+def test_gibbs_posterior_kernel_matches_plain(cuda, case):
+    """Every sampled pair equal to the plain version's."""
+    clusters = posterior_cluster_set(48, seed=48)
+    if case == "over_shared_memory":
+        # 200 x 200 scores: the CDFs do not fit shared memory.
+        rng = np.random.default_rng(49)
+        wide = (rng.random((30, 200)) * (rng.random((30, 200)) < 0.3), np.full(30, 0.01),
+                np.ones(30), [1] * 200)
+        clusters = [wide, clusters[3]]
+    keys = list(prng.split(prng.prng_key(5), len(clusters)))
+    jobs = posteriors.posterior_gibbs_jobs(clusters, keys, cuda)
+    plan = posterior_gibbs_cuda.plan_launches(jobs.host["n_cols"], jobs.host["n_chains"])
+    if case == "over_shared_memory":
+        assert not plan[0].staged
+    launches = posterior_gibbs_cuda.LAUNCHES
+    kernel = posterior_gibbs_cuda.posterior_gibbs(jobs)
+    torch.cuda.synchronize()
+    assert posterior_gibbs_cuda.LAUNCHES == launches + len(plan)
+    plain = posterior_gibbs_cuda.posterior_gibbs_plain(jobs)
+    assert torch.equal(kernel.cpu(), plain.cpu())
+
+
+def test_gibbs_samplers_on_cuda_route(cuda):
+    """The models' entry points reach both kernels on cuda and return
+    normalised results."""
+    inputs = gibbs_job_set(16, seed=50)
+    keys = list(prng.split(prng.prng_key(2), len(inputs)))
+    jobs_before = gibbs_cuda.JOBS
+    results = readcount_gibbs.run_batched_gibbs(inputs, keys, 4, 3, 1.0, cuda)
+    assert gibbs_cuda.JOBS == jobs_before + len(inputs)
+    for item, (noise, paths) in zip(inputs, results):
+        np.testing.assert_allclose(noise + paths.sum(axis=1), item[4], rtol=1e-9)
+    clusters = posterior_cluster_set(10, seed=51)
+    before = posterior_gibbs_cuda.CLUSTERS, posteriors.SCORED_CLUSTERS["cuda"]
+    post = posteriors.path_group_posteriors_gibbs_batched(clusters, 2, keys[:10], cuda)
+    assert posterior_gibbs_cuda.CLUSTERS == before[0] + 10
+    assert posteriors.SCORED_CLUSTERS["cuda"] == before[1] + 10
+    for groups, freqs in post:
+        assert abs(float(np.sum(freqs)) - 1.0) < 1e-12
+        assert all(a <= b for a, b in groups)

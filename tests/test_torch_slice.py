@@ -16,11 +16,13 @@ import rpvg_tpu.infer.batched_models as ref_batched_models
 import rpvg_tpu.infer.batching as ref_batching
 import rpvg_tpu.infer.estimators as ref_estimators
 import rpvg_tpu.infer.posteriors as ref_posteriors
+import rpvg_tpu.infer.readcount_gibbs as ref_readcount_gibbs
 import rpvg_tpu.pipeline as ref_pipeline
 import rpvg_tpu_torch.infer.batched_models as port_batched_models
 import rpvg_tpu_torch.infer.batching as port_batching
 import rpvg_tpu_torch.infer.estimators as port_estimators
 import rpvg_tpu_torch.infer.posteriors as port_posteriors
+import rpvg_tpu_torch.infer.readcount_gibbs as port_readcount_gibbs
 import rpvg_tpu_torch.pipeline as port_pipeline
 from rpvg_tpu import sim
 from rpvg_tpu_torch import cli
@@ -162,15 +164,21 @@ VERBATIM = [
     (port_batching, ref_batching, name)
     for name in (
         "em_postprocess", "native_em_available", "fuse_em_enabled", "_ceil_pow2", "_ceil_pow4",
+        "run_native_em",
     )
 ] + [
-    (port_batched_models, ref_batched_models, "_flat_group_spec"),
+    (port_batched_models, ref_batched_models, name)
+    for name in ("_flat_group_spec", "_attach_gibbs_samples")
 ] + [
     (port_posteriors, ref_posteriors, name)
     for name in (
         "_normalize_log_posteriors", "_pair_tensor_limit", "_ceil_pow2",
         "_ceil_pow4", "_diploid_select", "_native_diploid_select",
+        "gibbs_iteration_counts", "_native_pair_scores", "_posterior_gibbs_native",
     )
+] + [
+    (port_readcount_gibbs, ref_readcount_gibbs, name)
+    for name in ("_fold_low_abundance", "run_native_gibbs")
 ]
 
 
@@ -278,11 +286,11 @@ def test_cuda_backend_without_cuda_fails(tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra,item",
     [
-        (("-i", "transcripts", "-n", "4"), 12),
-        (("-i", "strains", "-n", "4"), 12),
+        (("--use-hap-gibbs", "-y", "3"), 10),
+        (("-i", "haplotypes", "--use-hap-gibbs", "-y", "3"), 10),
         (("-i", "haplotypes", "-y", "3"), 10),
-        (("-n", "4"), 12),
-        (("--use-hap-gibbs",), 13),
+        (("--ind-hap-inference", "-n", "4"), 14),
+        (("-i", "haplotypes", "-y", "4"), 10),
         (("--ind-hap-inference",), 14),
         (("-y", "3"), 10),
         (("--multiprocess", "2"), 16),

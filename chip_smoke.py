@@ -40,11 +40,13 @@ Phases (each prints at least one line; any failure exits non-zero):
 7. the read-count Gibbs kernel against its plain version on 261 seeded
    jobs (every kept fraction within rtol 1e-9, or the job held to the
    distributional bounds against the native sampler), against the native
-   sampler on tests/test_gibbs_crossbackend.py's fixture, then re-timed
-   on phase 9's captured jobs;
+   sampler on tests/test_gibbs_crossbackend.py's fixture, then on phase
+   9's captured jobs: their first min(S, 8) samples against the plain
+   version likewise, and re-timed;
 8. the posterior Gibbs kernel likewise (every sampled pair equal to the
-   plain version's; total variation against the native sampler), then
-   re-timed on phase 9's captured clusters.
+   plain version's, or the cluster within total variation 0.05; against
+   the native sampler on the fixture), on seeded clusters of up to 200
+   paths and on phase 9's captured clusters, then re-timed on those.
 
 Phase 3 also runs the CPU tests' seven Gibbs configurations (-n 8 for
 every abundance model, --use-hap-gibbs for both haplotype models) on
@@ -477,27 +479,39 @@ def gibbs_job_slices(jobs, out):
 def gibbs_bound(jobs, thin):
     """(bound ms, what bounds it) of a read-count Gibbs call: every task
     matrix, count, starting fraction and per-job word read once and every
-    kept fraction written once at the HBM rate, against the arithmetic of
-    its iterations at the FP64 peak.  Per iteration: 2 R C flops for the
-    rows' masses; a row of n <= 256 reads walks n times, counted at half
-    its C columns (a multiply and an add each, so n C); a larger row splits
-    by C binomials, counted at 50 flops each; and 22 C for the Gamma
-    draws and the normalisation."""
+    kept fraction written once at the HBM rate, against the least
+    arithmetic the function needs at the FP64 peak, whatever algorithm
+    computes it.  Per iteration of a job:
+    - 2 R C for the rows' masses, a product and an add per element (the
+      running sums are each row's CDF);
+    - per row of n > 0 reads and positive mass, its multinomial split as
+      the fewer of n binary searches of that CDF (ceil(log2 C)
+      comparisons each) and C conditional binomial draws (one operation
+      each);
+    - 3 C for the columns' Gamma draws (one operation each), their sum
+      and the normalisation.
+    The random bits (integer Philox rounds) and a draw's cost beyond one
+    operation are not counted, so the bound is a lower bound."""
     import numpy as np
 
-    from rpvg_tpu_torch.ops.gibbs_cuda import MAX_TRIALS
-
-    R, C = jobs.shapes[:, 0].astype(np.float64), jobs.shapes[:, 1].astype(np.float64)
+    shapes = jobs.shapes
+    R, C = shapes[:, 0].astype(np.float64), shapes[:, 1].astype(np.float64)
     S = jobs.host_samples.astype(np.float64)
-    counts = jobs.tasks.counts.cpu().numpy()
-    row_off = jobs.tasks.row_offsets.cpu().numpy()
+    tasks = jobs.tasks
+    probs = tasks.probs.cpu().numpy()
+    counts = tasks.counts.cpu().numpy()
+    mat_off = tasks.mat_offsets.cpu().numpy()
+    row_off = tasks.row_offsets.cpu().numpy()
     split = np.zeros(jobs.n_jobs)
     for j, task in enumerate(jobs.host_task_ids):
+        rows, cols = int(shapes[j, 0]), int(shapes[j, 1])
         n = counts[row_off[task]:row_off[task + 1]]
-        split[j] = n[n <= MAX_TRIALS].sum() * C[j] + 50.0 * C[j] * (n > MAX_TRIALS).sum()
+        mass = probs[mat_off[task]:mat_off[task + 1]].reshape(rows, cols).sum(axis=1)
+        n = n[(n > 0) & (mass > 0)]
+        split[j] = np.minimum(n * math.ceil(math.log2(cols)), cols).sum()
     in_bytes = 8 * float((R * C + R + C + 7).sum())
     out_bytes = 8 * float((S * C).sum())
-    flops = float((S * thin * (2 * R * C + split + 22 * C)).sum())
+    flops = float((S * thin * (2 * R * C + split + 3 * C)).sum())
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / FP64_FLOPS * 1e3
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
@@ -522,13 +536,68 @@ def posterior_bound(jobs):
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
+def gibbs_job_item(jobs, j):
+    """Job j of ``jobs`` as a sampler input (P, counts, abundances, noise,
+    total 1: its starting fractions as they are) and its threefry key,
+    read back from the card."""
+    import numpy as np
+
+    tasks = jobs.tasks
+    task = int(jobs.host_task_ids[j])
+    rows, cols = map(int, tasks.shapes[task])
+    m0, r0 = int(tasks.mat_offsets[task]), int(tasks.row_offsets[task])
+    probs = tasks.probs[m0:m0 + rows * cols].cpu().numpy().reshape(rows, cols)
+    counts = tasks.counts[r0:r0 + rows].cpu().numpy()
+    f0, f1 = int(jobs.frac_offsets[j]), int(jobs.frac_offsets[j + 1])
+    fracs = jobs.init_fracs[f0:f1].cpu().numpy()
+    seed = int(jobs.seeds[j].item()) & 0xFFFFFFFFFFFFFFFF
+    key = np.array([seed >> 32, seed & 0xFFFFFFFF], dtype=np.uint32)
+    return (probs, counts, fracs[:-1], float(fracs[-1]), 1.0), key
+
+
+def check_diverged_job(label, item, key, device, thin, gamma):
+    """A job whose kernel samples left the plain version's is held to the
+    distributional bounds: 200 samples from the kernel and from the native
+    sampler, both folded as the outputs fold them."""
+    import numpy as np
+
+    from rpvg_tpu_torch.infer import readcount_gibbs
+
+    on_card = readcount_gibbs.run_batched_gibbs([item], [key], 200, thin, gamma, device)[0]
+    native = readcount_gibbs.run_native_gibbs([item], [key], 200, thin, gamma)[0]
+    worst_se, worst_p, ok = distribution_check(
+        np.column_stack([on_card[1], on_card[0]]), np.column_stack([native[1], native[0]])
+    )
+    if not ok:
+        raise AssertionError(
+            f"diverged {label} {item[0].shape} fails the distributional bounds against the "
+            f"native sampler: {worst_se:.2f} se, KS p {worst_p:.2e}"
+        )
+
+
+def compare_gibbs(jobs, kernel, plain):
+    """(jobs whose kept fractions leave rtol 1e-9 of the plain version's,
+    the largest absolute difference over the others)."""
+    import numpy as np
+
+    diverged, max_abs = [], 0.0
+    for j, (k, p) in enumerate(zip(gibbs_job_slices(jobs, kernel), gibbs_job_slices(jobs, plain))):
+        if not np.allclose(k, p, rtol=1e-9, atol=0.0):
+            diverged.append(j)
+        elif k.size:
+            max_abs = max(max_abs, float(np.abs(k - p).max()))
+    return diverged, max_abs
+
+
 def phase_gibbs_kernel(torch, device, captured):
     """Phase 7: the read-count kernel against its plain version on 261
     seeded jobs shaped like phase D's tasks (8 samples at thin 25), every
     diverged job held to the distributional bounds against the native
     sampler; against the native sampler on the crossbackend fixture; then
-    re-timed on the jobs phase D2 of phase 9's -n 100 main-path run handed
-    it, and their slowest job alone."""
+    on the jobs phase D2 of phase 9's -n 100 main-path run handed it:
+    re-timed, their first min(S, 8) samples held against the plain version
+    (and against the kernel's full run: the same prefix), and their
+    slowest job timed alone."""
     import numpy as np
 
     from rpvg_tpu_torch import prng
@@ -544,25 +613,10 @@ def phase_gibbs_kernel(torch, device, captured):
     if not torch.equal(kernel, again):
         raise AssertionError("read-count Gibbs kernel is not deterministic across runs")
     plain = gibbs_cuda.gibbs_read_counts_plain(jobs, GIBBS_THIN, 1.0)
-    diverged, max_abs = [], 0.0
-    for j, (k, p) in enumerate(zip(gibbs_job_slices(jobs, kernel), gibbs_job_slices(jobs, plain))):
-        if np.allclose(k, p, rtol=1e-9, atol=0.0):
-            max_abs = max(max_abs, float(np.abs(k - p).max()))
-        else:
-            diverged.append(j)
+    diverged, max_abs = compare_gibbs(jobs, kernel, plain)
     keys = prng.split(prng.prng_key(62), len(inputs))
     for j in diverged:
-        # 200 samples of the job from the kernel and the native sampler.
-        one = gibbs_jobs_on([inputs[j]], device, [200], seed=63)
-        k = gibbs_job_slices(one, gibbs_cuda.gibbs_read_counts(one, GIBBS_THIN, 1.0))[0]
-        native = readcount_gibbs.run_native_gibbs([inputs[j]], [keys[j]], 200, GIBBS_THIN)[0]
-        n = np.column_stack([native[1], native[0]]) / inputs[j][4]
-        worst_se, worst_p, ok = distribution_check(k, n)
-        if not ok:
-            raise AssertionError(
-                f"diverged job {j} {inputs[j][0].shape} fails the distributional bounds: "
-                f"{worst_se:.2f} se, KS p {worst_p:.2e}"
-            )
+        check_diverged_job(f"seeded job {j}", inputs[j], keys[j], device, GIBBS_THIN, 1.0)
     kernel_ms = cuda_ms(lambda: gibbs_cuda.gibbs_read_counts(jobs, GIBBS_THIN, 1.0), reps=10)
     plain_ms = cuda_ms(lambda: gibbs_cuda.gibbs_read_counts_plain(jobs, GIBBS_THIN, 1.0),
                        reps=1, warmup=False)
@@ -596,16 +650,42 @@ def phase_gibbs_kernel(torch, device, captured):
     if len(captured) != 1:
         raise AssertionError(f"phase D2 called the read-count kernel {len(captured)} times, not once")
     main_jobs, thin, gamma = captured[0]
+    full = gibbs_cuda.gibbs_read_counts(main_jobs, thin, gamma)
     main_ms = cuda_ms(lambda: gibbs_cuda.gibbs_read_counts(main_jobs, thin, gamma), reps=3)
     main_bound, main_by = gibbs_bound(main_jobs, thin)
+    # The plain version on the main path's jobs: a shorter run is the
+    # prefix of a longer one on the same counters, so the jobs are rebuilt
+    # at min(S, 8) samples on the same packed tasks, fractions and seeds.
+    fracs = main_jobs.init_fracs.cpu().numpy()
+    offsets = main_jobs.frac_offsets.cpu().numpy()
+    short = gibbs_cuda.make_jobs(
+        main_jobs.tasks, main_jobs.host_task_ids,
+        [fracs[offsets[j]:offsets[j + 1]] for j in range(main_jobs.n_jobs)],
+        main_jobs.seeds.cpu().numpy().view(np.uint64), np.minimum(main_jobs.host_samples, 8),
+    )
+    short_kernel = gibbs_cuda.gibbs_read_counts(short, thin, gamma)
+    not_prefix = [
+        j for j, (f, s) in enumerate(zip(gibbs_job_slices(main_jobs, full),
+                                         gibbs_job_slices(short, short_kernel)))
+        if not np.array_equal(f[:len(s)], s)
+    ]
+    if not_prefix:
+        raise AssertionError(f"{len(not_prefix)} main-path jobs: min(S, 8) samples are not the "
+                             "prefix of the full run's")
+    t0 = time.perf_counter()
+    short_plain = gibbs_cuda.gibbs_read_counts_plain(short, thin, gamma)
+    torch.cuda.synchronize()
+    short_plain_s = time.perf_counter() - t0
+    main_diverged, main_max_abs = compare_gibbs(short, short_kernel, short_plain)
+    for j in main_diverged:
+        check_diverged_job(f"main-path job {j}", *gibbs_job_item(main_jobs, j), device, thin, gamma)
     shapes = main_jobs.shapes
     work = main_jobs.host_samples * shapes[:, 0] * shapes[:, 1]
     slow = []
     for j in sorted(set(np.argsort(-work)[:3].tolist()) | set(np.argsort(-main_jobs.host_samples)[:1].tolist())):
-        task = int(main_jobs.host_task_ids[j])
         one = gibbs_cuda.make_jobs(
-            main_jobs.tasks, [task],
-            [main_jobs.init_fracs[main_jobs.frac_offsets[j]:main_jobs.frac_offsets[j + 1]].cpu().numpy()],
+            main_jobs.tasks, [int(main_jobs.host_task_ids[j])],
+            [fracs[offsets[j]:offsets[j + 1]]],
             [int(main_jobs.seeds[j].item()) & 0xFFFFFFFFFFFFFFFF], [int(main_jobs.host_samples[j])],
         )
         slow.append((cuda_ms(lambda: gibbs_cuda.gibbs_read_counts(one, thin, gamma), reps=3), j))
@@ -613,59 +693,83 @@ def phase_gibbs_kernel(torch, device, captured):
     log(
         f"phase 7: the -n 100 run's phase-D2 jobs ({main_jobs.n_jobs}, samples median "
         f"{int(np.median(main_jobs.host_samples))} max {int(main_jobs.host_samples.max())}, "
-        f"thin {thin}) re-timed: kernel {main_ms:.3f} ms (CUDA events), bound "
-        f"{main_bound:.5f} ms ({main_by}); slowest job {tuple(map(int, shapes[j]))} x "
-        f"{int(main_jobs.host_samples[j])} samples alone {alone_ms:.3f} ms"
+        f"thin {thin}): vs plain at min(S, 8) samples (the prefix of the full run, bitwise): "
+        f"{main_jobs.n_jobs - len(main_diverged)} within rtol 1e-9 (max abs "
+        f"{main_max_abs:.3e}), {len(main_diverged)} diverged (each within the distributional "
+        f"bounds of the native sampler), plain {short_plain_s:.1f} s; re-timed: kernel "
+        f"{main_ms:.3f} ms (CUDA events), bound {main_bound:.5f} ms ({main_by}); slowest job "
+        f"{tuple(map(int, shapes[j]))} x {int(main_jobs.host_samples[j])} samples alone "
+        f"{alone_ms:.3f} ms"
     )
     return {
-        "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "diverged_jobs": len(diverged), "main_path_jobs": main_jobs.n_jobs,
+        "max_abs_err": max(max_abs, main_max_abs), "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "diverged_jobs": len(diverged),
+        "main_path_jobs": main_jobs.n_jobs, "main_path_diverged_jobs": len(main_diverged),
         "main_path_jobs_ms": main_ms, "main_path_jobs_bound_ms": main_bound,
         "main_path_slowest_job_ms": alone_ms,
     }
 
 
+def pair_posteriors(posteriors, jobs, samples):
+    """Per cluster, sorted pair -> sample frequency, of sampled pairs."""
+    host = jobs.host
+    return [dict(zip(map(tuple, groups), freqs)) for groups, freqs in
+            posteriors._dedup_pairs(samples, host["out_offsets"], host["n_chains"], host["n_its"])]
+
+
+def diverged_clusters(jobs, kernel, plain):
+    """Clusters whose sampled pairs are not all equal to the plain
+    version's (host arrays)."""
+    import numpy as np
+
+    offsets = jobs.host["out_offsets"]
+    return [b for b in range(jobs.n_clusters)
+            if not np.array_equal(kernel[offsets[b]:offsets[b + 1]], plain[offsets[b]:offsets[b + 1]])]
+
+
 def phase_posterior_kernel(torch, device, captured):
     """Phase 8: the posterior kernel against its plain version on 256
-    seeded clusters (every pair equal), against the native sampler on the
-    crossbackend fixture (total variation, top group), then re-timed on
-    the clusters of phase 9's haplotypes --use-hap-gibbs run."""
+    seeded clusters of up to the main path's 120 paths and one of 200
+    (its CDFs past shared memory), every pair equal or the cluster within
+    total variation 0.05 of the native sampler; against the native
+    sampler on the crossbackend fixture (total variation, top group);
+    then on the clusters of phase 9's haplotypes --use-hap-gibbs run:
+    against the plain version (every pair equal, or a cluster's posterior
+    within total variation 0.05 of the plain version's) and re-timed."""
     import numpy as np
 
     from rpvg_tpu_torch import prng
     from rpvg_tpu_torch.infer import posteriors
     from rpvg_tpu_torch.ops import posterior_gibbs_cuda
-    from rpvg_tpu_torch.testing import posterior_cluster_set
+    from rpvg_tpu_torch.testing import posterior_cluster_set, posterior_wide_cluster
 
-    clusters = posterior_cluster_set(256, seed=71)
+    clusters = posterior_cluster_set(256, seed=71, max_paths=120) + [posterior_wide_cluster(200, 73)]
     keys = prng.split(prng.prng_key(72), len(clusters))
     jobs = posteriors.posterior_gibbs_jobs(clusters, keys, device)
-    kernel = posterior_gibbs_cuda.posterior_gibbs(jobs)
-    plain = posterior_gibbs_cuda.posterior_gibbs_plain(jobs)
-    torch.cuda.synchronize()
-    offsets = jobs.host["out_offsets"]
-    k_host, p_host = kernel.cpu().numpy(), plain.cpu().numpy()
-    diverged = [b for b in range(len(clusters))
-                if not np.array_equal(k_host[offsets[b]:offsets[b + 1]], p_host[offsets[b]:offsets[b + 1]])]
-    chains, its = jobs.host["n_chains"], jobs.host["n_its"]
+    plan = posterior_gibbs_cuda.plan_launches(jobs.host["n_cols"], jobs.host["n_chains"])
+    unstaged = sum(lc.tasks.size for lc in plan if not lc.staged)
+    kernel = posterior_gibbs_cuda.posterior_gibbs(jobs).cpu().numpy()
+    plain = posterior_gibbs_cuda.posterior_gibbs_plain(jobs).cpu().numpy()
+    diverged = diverged_clusters(jobs, kernel, plain)
     if diverged:
-        k_post = posteriors._dedup_pairs(k_host, offsets, chains, its)
+        k_post = pair_posteriors(posteriors, jobs, kernel)
         native = posteriors._posterior_gibbs_native([clusters[b] for b in diverged],
                                                     [keys[b] for b in diverged])
         for b, (groups, freqs) in zip(diverged, native):
-            tv = total_variation(dict(zip(map(tuple, k_post[b][0]), k_post[b][1])),
-                                 dict(zip(map(tuple, groups), freqs)))
+            tv = total_variation(k_post[b], dict(zip(map(tuple, groups), freqs)))
             if tv >= TV_MAX:
                 raise AssertionError(f"diverged cluster {b}: total variation {tv:.3f} vs native")
     kernel_ms = cuda_ms(lambda: posterior_gibbs_cuda.posterior_gibbs(jobs), reps=10)
     plain_ms = cuda_ms(lambda: posterior_gibbs_cuda.posterior_gibbs_plain(jobs), reps=1, warmup=False)
     bound_ms, bound_by = posterior_bound(jobs)
+    cols = jobs.host["n_cols"]
     log(
-        f"phase 8: posterior Gibbs kernel vs plain on {len(clusters)} seeded clusters (P 1-28, "
-        f"{int(chains.sum())} chains): {len(clusters) - len(diverged)} with every pair equal, "
-        f"{len(diverged)} diverged (each within total variation {TV_MAX} of the native "
-        f"sampler); kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events), bound "
-        f"{bound_ms:.5f} ms ({bound_by})"
+        f"phase 8: posterior Gibbs kernel vs plain on {len(clusters)} seeded clusters (P "
+        f"{int(cols.min())}-{int(cols.max())}, {unstaged} with CDFs past shared memory, "
+        f"{int(jobs.host['n_chains'].sum())} chains): {len(clusters) - len(diverged)} with every "
+        f"pair equal, {len(diverged)} diverged (each within total variation {TV_MAX} of the "
+        f"native sampler); kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events), "
+        f"bound {bound_ms:.5f} ms ({bound_by})"
     )
 
     probs_full, counts = gibbs_fixture()
@@ -685,18 +789,35 @@ def phase_posterior_kernel(torch, device, captured):
     if len(captured) != 1:
         raise AssertionError(f"phase B called the posterior kernel {len(captured)} times, not once")
     main = captured[0]
+    main_kernel = posterior_gibbs_cuda.posterior_gibbs(main).cpu().numpy()
+    t0 = time.perf_counter()
+    main_plain = posterior_gibbs_cuda.posterior_gibbs_plain(main).cpu().numpy()
+    main_plain_s = time.perf_counter() - t0
+    main_diverged = diverged_clusters(main, main_kernel, main_plain)
+    worst_tv = 0.0
+    if main_diverged:
+        # The scores alone were captured, not the native sampler's inputs:
+        # a diverged cluster's posterior is held to the plain version's.
+        k_post = pair_posteriors(posteriors, main, main_kernel)
+        p_post = pair_posteriors(posteriors, main, main_plain)
+        worst_tv = max(total_variation(k_post[b], p_post[b]) for b in main_diverged)
+        if worst_tv >= TV_MAX:
+            raise AssertionError(f"main-path clusters: total variation {worst_tv:.3f} vs plain")
     main_ms = cuda_ms(lambda: posterior_gibbs_cuda.posterior_gibbs(main), reps=5)
     main_bound, main_by = posterior_bound(main)
     log(
         f"phase 8: the --use-hap-gibbs run's {main.n_clusters} clusters (P median "
-        f"{int(np.median(main.host['n_cols']))} max {int(main.host['n_cols'].max())}) re-timed: "
-        f"kernel {main_ms:.3f} ms (CUDA events), bound {main_bound:.5f} ms ({main_by})"
+        f"{int(np.median(main.host['n_cols']))} max {int(main.host['n_cols'].max())}): vs plain "
+        f"{main.n_clusters - len(main_diverged)} with every pair equal, {len(main_diverged)} "
+        f"diverged (worst total variation vs plain {worst_tv:.4f}, allowed {TV_MAX}), plain "
+        f"{main_plain_s:.2f} s; re-timed: kernel {main_ms:.3f} ms (CUDA events), bound "
+        f"{main_bound:.5f} ms ({main_by})"
     )
     return {
         "max_abs_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "diverged_clusters": len(diverged),
-        "main_path_clusters": main.n_clusters, "main_path_clusters_ms": main_ms,
-        "main_path_clusters_bound_ms": main_bound,
+        "main_path_clusters": main.n_clusters, "main_path_diverged_clusters": len(main_diverged),
+        "main_path_clusters_ms": main_ms, "main_path_clusters_bound_ms": main_bound,
     }
 
 
@@ -886,6 +1007,13 @@ def check_routes(model, fused, stats, counts, hap_gibbs=False):
         raise AssertionError(f"{model}: device work not all through the kernels: {counts}")
 
 
+def gibbs_writer_seconds(stats):
+    """The _gibbs.txt.gz writer's share of a run's wall, as text."""
+    return (f"{stats['gibbs_writer_seconds']:.3f}s on the main thread (rows collected and "
+            f"formatted) + {stats['gibbs_writer_join_seconds']:.3f}s waiting for its gzip "
+            f"thread after the outputs")
+
+
 def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, threads,
               model, info, fused=False, extra=()):
     """One CLI run at full width with the counters reset just before and
@@ -914,7 +1042,8 @@ def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, thr
             raise AssertionError(f"{model}: _gibbs.txt.gz has no rows or non-finite samples")
         gibbs = (f", {stats['gibbs_jobs']} Gibbs jobs through the read-count kernel in "
                  f"{counts['gibbs_launches']} launch(es), _gibbs.txt.gz {len(gibbs_rows)} rows x "
-                 f"{len(header) - 2} samples, all finite")
+                 f"{len(header) - 2} samples, all finite, its writer "
+                 f"{gibbs_writer_seconds(stats)}")
     if "--use-hap-gibbs" in extra:
         gibbs += (f", {counts['posterior_clusters']} clusters through the posterior kernel in "
                   f"{counts['posterior_launches']} launch(es)")
@@ -1106,7 +1235,8 @@ def main() -> int:
             f"phase 9: haplotype-transcripts -f -n 100 on cpu (native samplers): {PAIRS} pairs in "
             f"{cpu_wall:.2f}s wall; phases "
             + ", ".join(f"{k} {v:.3f}s" for k, v in cpu_stats["phase_seconds"].items())
-            + f"; {cpu_stats['gibbs_jobs']} Gibbs jobs"
+            + f", outputs {cpu_stats['output_seconds']:.2f}s; {cpu_stats['gibbs_jobs']} Gibbs "
+            f"jobs; _gibbs.txt.gz writer {gibbs_writer_seconds(cpu_stats)}"
         )
         rep = compare_estimate_files(os.path.join(work, "gibbs_main.txt"),
                                      os.path.join(work, "gibbs_main_cpu.txt"), RTOL, ATOL_OUT)
@@ -1182,6 +1312,7 @@ def main() -> int:
             "main_path_run": "haplotype-transcripts -f -n 100",
             "diverged_jobs": gibbs["diverged_jobs"],
             "main_path_jobs": gibbs["main_path_jobs"],
+            "main_path_diverged_jobs": gibbs["main_path_diverged_jobs"],
             "main_path_jobs_ms": gibbs["main_path_jobs_ms"],
             "main_path_jobs_bound_ms": gibbs["main_path_jobs_bound_ms"],
             "main_path_slowest_job_ms": gibbs["main_path_slowest_job_ms"],
@@ -1202,6 +1333,7 @@ def main() -> int:
             "main_path_run": "haplotypes --use-hap-gibbs",
             "diverged_clusters": posterior["diverged_clusters"],
             "main_path_clusters": posterior["main_path_clusters"],
+            "main_path_diverged_clusters": posterior["main_path_diverged_clusters"],
             "main_path_clusters_ms": posterior["main_path_clusters_ms"],
             "main_path_clusters_bound_ms": posterior["main_path_clusters_bound_ms"],
         },

@@ -22,8 +22,10 @@
 // Random bits: Philox4x32-10 (philox.cuh) keyed by the cluster's 64-bit
 // seed, at counter (chain, step, 0, tag): each chain is its own stream.
 // rpvg_tpu_torch/ops/posterior_gibbs_cuda.py posterior_gibbs_plain
-// repeats this arithmetic in PyTorch on the same counters; built with
-// -fmad=false.
+// repeats this arithmetic in PyTorch on the same counters; its CDFs
+// differ from the kernel's (multiply-adds fused here) in the last bits at
+// most, so a chain leaves the plain version's only where that flips a
+// search.
 //
 // The CDFs live in shared memory when P * P doubles fit, else in a
 // global scratch of the same layout.  What bounds it on an H100: the

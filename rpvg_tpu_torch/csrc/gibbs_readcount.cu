@@ -32,9 +32,13 @@
 // Random bits: Philox4x32-10 (philox.cuh) keyed by the job's 64-bit seed,
 // at counters (iteration, row or column, index, tag | attempt); see
 // kTag* below.  rpvg_tpu_torch/ops/gibbs_cuda.py gibbs_read_counts_plain
-// repeats this arithmetic step by step in PyTorch on the same counters;
-// the library is built with -fmad=false so that no multiply-add is fused
-// here that the plain version rounds twice.
+// repeats this arithmetic step by step in PyTorch on the same counters.
+// nvcc fuses multiply-adds here that the plain version rounds twice, so
+// the two differ in the last bits of a fraction, and a job leaves the
+// plain version's chain only where such a difference flips one draw's
+// comparison (none in chip_smoke.py phase 7's 3,771 jobs).  Building with
+// -fmad=false makes them bitwise equal and the kernel 7 % slower on an
+// H100 (tools/torch_gibbs_profile.py).
 //
 // Layout: one block per job, threads over rows (step 2) and columns
 // (steps 4-5).  A lane draws its own row's trials when they are at most

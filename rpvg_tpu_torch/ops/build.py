@@ -4,8 +4,7 @@ Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` into ``rpvg_tpu_torch/build/lib<name>.so`` at first
 use, then loaded with ``ctypes``.  A library older than its source or
 than a header in ``csrc/`` (the sources share ``em_task.cuh``) is
-rebuilt.  ``KERNEL_FLAGS`` adds a kernel's own flags.  Nothing here
-runs at import time: the CPU test host has no
+rebuilt.  Nothing here runs at import time: the CPU test host has no
 ``nvcc``.
 """
 
@@ -27,14 +26,6 @@ NVCC_FLAGS = (
     # Registers, shared memory and spills of every kernel, on stderr.
     "-Xptxas", "-v",
 )
-
-# Flags of one kernel on top of NVCC_FLAGS.  The Gibbs samplers are held
-# draw for draw against plain PyTorch versions that round every multiply
-# and add on its own, so no multiply-add may be fused in them.
-KERNEL_FLAGS: Dict[str, Tuple[str, ...]] = {
-    "gibbs_readcount": ("-fmad=false",),
-    "gibbs_posterior": ("-fmad=false",),
-}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -76,7 +67,7 @@ def build_library(name: str, force: bool = False) -> Tuple[str, str]:
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *KERNEL_FLAGS.get(name, ()), "-o", tmp, src]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
     result = subprocess.run(cmd, capture_output=True, text=True)
     if result.returncode != 0:
         raise KernelBuildError(

@@ -13,8 +13,10 @@ counters).
 tensor launches the kernel (or raises), a CPU tensor runs
 :func:`gibbs_read_counts_plain`.  The plain version repeats the kernel's
 arithmetic step by step (the same products, sums in the same order, the
-same Philox counters), so on the card the two agree to the last bit
-wherever the math library rounds alike.
+same Philox counters), so on the card the two draw the same chain and
+their fractions differ in the last bits (the kernel fuses multiply-adds,
+and the math libraries round apart), unless such a difference flips one
+draw.
 """
 
 from __future__ import annotations

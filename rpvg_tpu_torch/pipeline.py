@@ -1319,11 +1319,14 @@ def run_inference_phases(
             for _, (paths, cluster_probs) in cluster_data:
                 prob_writer.add_cluster(cluster_probs, paths)
             prob_writer.close_async()
+        gibbs_writer_seconds = gibbs_join_seconds = 0.0
         if gibbs_writer is not None:
+            t_gibbs = time.perf_counter()
             for result in results:
                 gibbs_writer.add_samples(result.cluster_id, result.estimates)
                 result.estimates.gibbs_read_count_samples = []
             gibbs_writer.finish_async(fragment_index.unaligned_count)
+            gibbs_writer_seconds = time.perf_counter() - t_gibbs
 
         log(
             f"Inferred path posterior probabilities"
@@ -1334,10 +1337,14 @@ def run_inference_phases(
         t_out = time.perf_counter()
         write_outputs(config, results, fragment_index.unaligned_count)
         output_seconds = time.perf_counter() - t_out
-        # Join both writers before publishing either.
-        for writer in (prob_writer, gibbs_writer):
-            if writer is not None:
-                writer.join()
+        # Join both writers before publishing either; the wait for the
+        # _gibbs.txt.gz thread's compression is timed on its own.
+        if prob_writer is not None:
+            prob_writer.join()
+        if gibbs_writer is not None:
+            t_join = time.perf_counter()
+            gibbs_writer.join()
+            gibbs_join_seconds = time.perf_counter() - t_join
         for writer in (prob_writer, gibbs_writer):
             if writer is not None:
                 writer.publish()
@@ -1360,6 +1367,10 @@ def run_inference_phases(
         "results": results,
         "matrix_seconds": matrix_seconds,
         "output_seconds": output_seconds,
+        # -n: collecting and formatting the _gibbs.txt.gz rows on the main
+        # thread, then the wait for its writer thread after the outputs.
+        "gibbs_writer_seconds": gibbs_writer_seconds,
+        "gibbs_writer_join_seconds": gibbs_join_seconds,
         **inference,
     }
 

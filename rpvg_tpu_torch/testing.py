@@ -132,8 +132,10 @@ PosteriorCluster = Tuple[np.ndarray, np.ndarray, np.ndarray, List[int]]
 
 def posterior_cluster_set(n_clusters: int, seed: int, max_paths: int = 28) -> List[PosteriorCluster]:
     """``n_clusters`` diploid clusters (probs (R, P), noise (R,), counts
-    (R,), path source counts) with P up to ``max_paths`` (the main path's
-    7 isoforms x 4 haplotypes), one of them with a single path."""
+    (R,), path source counts) with P up to ``max_paths``, one of them
+    with a single path.  The default is one gene's 7 isoforms x 4
+    haplotypes; clusters that join genes are wider (up to 120 paths in
+    chip_smoke.py's 100k-pair run)."""
     rng = np.random.default_rng(seed)
     clusters = []
     for i in range(n_clusters):
@@ -146,6 +148,15 @@ def posterior_cluster_set(n_clusters: int, seed: int, max_paths: int = 28) -> Li
              rng.integers(1, 4, size=P).tolist())
         )
     return clusters
+
+
+def posterior_wide_cluster(n_paths: int, seed: int) -> PosteriorCluster:
+    """One diploid cluster of 30 reads over ``n_paths`` paths, 30 % of its
+    probabilities nonzero: at 200 paths its (P, P) CDFs do not fit one
+    block's shared memory."""
+    rng = np.random.default_rng(seed)
+    probs = rng.random((30, n_paths)) * (rng.random((30, n_paths)) < 0.3)
+    return probs, np.full(30, 0.01), np.ones(30), [1] * n_paths
 
 
 def gibbs_jobs_on(inputs: List[GibbsJob], device, samples, seed: int):

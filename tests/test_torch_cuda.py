@@ -24,6 +24,7 @@ from rpvg_tpu_torch.testing import (
     gibbs_jobs_on,
     padded_block_set,
     posterior_cluster_set,
+    posterior_wide_cluster,
     random_task,
 )
 
@@ -376,10 +377,7 @@ def test_gibbs_posterior_kernel_matches_plain(cuda, case):
     clusters = posterior_cluster_set(48, seed=48)
     if case == "over_shared_memory":
         # 200 x 200 scores: the CDFs do not fit shared memory.
-        rng = np.random.default_rng(49)
-        wide = (rng.random((30, 200)) * (rng.random((30, 200)) < 0.3), np.full(30, 0.01),
-                np.ones(30), [1] * 200)
-        clusters = [wide, clusters[3]]
+        clusters = [posterior_wide_cluster(200, 49), clusters[3]]
     keys = list(prng.split(prng.prng_key(5), len(clusters)))
     jobs = posteriors.posterior_gibbs_jobs(clusters, keys, cuda)
     plan = posterior_gibbs_cuda.plan_launches(jobs.host["n_cols"], jobs.host["n_chains"])

@@ -98,6 +98,54 @@ def test_posterior_native_route_is_bitwise_the_jax_packages():
         assert pg == rg and np.array_equal(pp, rp)
 
 
+def test_dedup_pairs_reads_the_native_buffer_as_the_native_route_does(monkeypatch):
+    """``_dedup_pairs`` repeats the verbatim ``_posterior_gibbs_native``'s
+    read of the native pair-dedup buffer: on the pairs the native sampler
+    drew, both give the same groups and frequencies (each pair sorted,
+    then counted, as numpy does it), so a change to the buffer's format
+    fails here for both copies."""
+    from rpvg_tpu_torch import native
+
+    rng = np.random.default_rng(12)
+    inputs = []
+    for R, P in [(8, 4), (40, 11), (5, 1), (70, 23)]:
+        probs = rng.random((R, P)) * (rng.random((R, P)) < 0.6)
+        inputs.append((probs, rng.uniform(1e-4, 0.1, R), rng.integers(1, 6, R).astype(float),
+                       rng.integers(1, 4, P).tolist()))
+    keys = list(cluster_gibbs_keys(13, range(len(inputs))))
+    lib = native.load_library()
+    drawn = {}
+
+    class Recorder:
+        """The library, with the sampler's output buffer kept."""
+
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def __setattr__(self, name, value):
+            setattr(lib, name, value)
+
+        def rpvg_posterior_gibbs_ragged(self, *args):
+            lib.rpvg_posterior_gibbs_ragged(*args)
+            n, view = args[8], np.ctypeslib.as_array
+            offsets = view(args[7], shape=(n + 1,)).copy()
+            drawn.update(offsets=offsets, chains=view(args[3], shape=(n,)).copy(),
+                         its=view(args[5], shape=(n,)).copy(),
+                         samples=view(args[10], shape=(int(offsets[-1]),)).copy())
+
+    monkeypatch.setattr(native, "load_library", lambda *a, **k: Recorder())
+    native_route = posteriors._posterior_gibbs_native(inputs, keys)
+    monkeypatch.undo()
+    ours = posteriors._dedup_pairs(drawn["samples"], drawn["offsets"], drawn["chains"], drawn["its"])
+    assert len(ours) == len(native_route) == len(inputs)
+    for b, ((groups, freqs), (ref_groups, ref_freqs)) in enumerate(zip(ours, native_route)):
+        assert groups == ref_groups and np.array_equal(freqs, ref_freqs)
+        pairs = drawn["samples"][drawn["offsets"][b] : drawn["offsets"][b + 1]].reshape(-1, 2)
+        unique, counts = np.unique(np.sort(pairs, axis=1), axis=0, return_counts=True)
+        assert groups == unique.tolist()
+        np.testing.assert_array_equal(freqs, counts / float(len(pairs)))
+
+
 def test_other_group_sizes_name_item_10():
     with pytest.raises(NotImplementedError, match="item 10"):
         posteriors.path_group_posteriors_gibbs_batched([], 3, [], CPU)

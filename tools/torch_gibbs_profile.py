@@ -22,7 +22,15 @@ jobs its phase D2 hands the kernel, then prints:
    sum and the normalisation;
 4. cycles per call of the kernel's primitives (Philox, the math library,
    a walk, a row's mass, Gamma and binomial draws), one thread chaining
-   2,000 calls each.
+   2,000 calls each;
+5. both Gibbs kernels built with -fmad=false and with nvcc's default
+   (multiply-adds fused; the port's build), in the order false, true,
+   true, false: the
+   read-count kernel on the D2 jobs and the 261 seeded jobs, the
+   posterior kernel on the clusters of a `haplotypes --use-hap-gibbs` run
+   (captured likewise); CUDA events, and how far the two builds' outputs
+   lie apart (jobs bitwise equal, within rtol 1e-9, diverged; clusters
+   with every pair equal).
 
 Build outputs go to rpvg_tpu_torch/build/ (git-ignored).
 """
@@ -127,14 +135,70 @@ def profiled_source(src: str) -> str:
     return out + PROFILE_READERS
 
 
-def nvcc(build, src_path, out_path, shared=True):
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, *build.KERNEL_FLAGS["gibbs_readcount"],
-           "-I", build.CSRC_DIR, "-o", out_path, src_path]
+def nvcc(build, src_path, out_path, shared=True, flags=()):
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, *flags, "-I", build.CSRC_DIR, "-o", out_path, src_path]
     if not shared:
         cmd = [c for c in cmd if c not in ("-shared", "-Xcompiler", "-fPIC")]
     result = subprocess.run(cmd, capture_output=True, text=True)
     if result.returncode != 0:
         raise RuntimeError(result.stderr)
+
+
+FMAD_BUILDS = (("-fmad=false", ("-fmad=false",)), ("-fmad=true", ()))
+
+
+def fmad_ab(build, module, call):
+    """(outputs, milliseconds) of ``call`` with ``module``'s kernel built
+    each way of FMAD_BUILDS, timed in the order false, true, true, false."""
+    import chip_smoke as cs
+
+    kernel = module._kernel_fn()
+    fns = {}
+    for label, flags in FMAD_BUILDS:
+        so = os.path.join(build.BUILD_DIR, f"lib{module.KERNEL_NAME}_{label[1:].replace('=', '_')}.so")
+        nvcc(build, build.source_path(module.KERNEL_NAME), so, flags=flags)
+        fn = getattr(ctypes.CDLL(so), kernel.__name__)
+        fn.restype, fn.argtypes = kernel.restype, kernel.argtypes
+        fns[label] = fn
+    outs, times = {}, {}
+    try:
+        for label in ("-fmad=false", "-fmad=true", "-fmad=true", "-fmad=false"):
+            module._fn = fns[label]
+            outs.setdefault(label, call())
+            times.setdefault(label, []).append(cs.cuda_ms(call, reps=3))
+    finally:
+        module._fn = kernel
+    return outs, times
+
+
+def report_fmad(build, gibbs_cuda, posterior_gibbs_cuda, readcount_runs, posterior_runs):
+    """Section 5 of the module docstring."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    for label, jobs, thin, gamma in readcount_runs:
+        outs, times = fmad_ab(build, gibbs_cuda, lambda: gibbs_cuda.gibbs_read_counts(jobs, thin, gamma))
+        a = cs.gibbs_job_slices(jobs, outs["-fmad=false"])
+        b = cs.gibbs_job_slices(jobs, outs["-fmad=true"])
+        same = sum(np.array_equal(x, y) for x, y in zip(a, b))
+        close = [np.allclose(x, y, rtol=1e-9, atol=0.0) for x, y in zip(a, b)]
+        rel = max((float(np.max(np.abs(x - y) / np.abs(x))) for x, y, c in zip(a, b, close)
+                   if c and x.size), default=0.0)
+        print(f"read-count kernel, {label} ({jobs.n_jobs} jobs): -fmad=false "
+              f"{' / '.join(f'{t:.3f}' for t in times['-fmad=false'])} ms, -fmad=true "
+              f"{' / '.join(f'{t:.3f}' for t in times['-fmad=true'])} ms (CUDA events); jobs "
+              f"bitwise equal {same}, within rtol 1e-9 {sum(close)} (max rel {rel:.3e}), "
+              f"diverged {len(close) - sum(close)}")
+    for label, jobs in posterior_runs:
+        outs, times = fmad_ab(build, posterior_gibbs_cuda,
+                              lambda: posterior_gibbs_cuda.posterior_gibbs(jobs))
+        diverged = cs.diverged_clusters(jobs, outs["-fmad=false"].cpu().numpy(),
+                                        outs["-fmad=true"].cpu().numpy())
+        print(f"posterior kernel, {label} ({jobs.n_clusters} clusters): -fmad=false "
+              f"{' / '.join(f'{t:.3f}' for t in times['-fmad=false'])} ms, -fmad=true "
+              f"{' / '.join(f'{t:.3f}' for t in times['-fmad=true'])} ms (CUDA events); clusters "
+              f"with every pair equal {jobs.n_clusters - len(diverged)}")
 
 
 def main() -> int:
@@ -144,7 +208,7 @@ def main() -> int:
     import chip_smoke as cs
     from rpvg_tpu_torch import alignments, cli, sim
     from rpvg_tpu_torch.io import rpa
-    from rpvg_tpu_torch.ops import build, gibbs_cuda
+    from rpvg_tpu_torch.ops import build, gibbs_cuda, posterior_gibbs_cuda
     from rpvg_tpu_torch.testing import gibbs_job_set, gibbs_jobs_on
 
     if not torch.cuda.is_available():
@@ -184,8 +248,23 @@ def main() -> int:
                                     + ["-n", "100"])
         finally:
             gibbs_cuda.gibbs_read_counts = sample
-    if rc != 0:
-        raise RuntimeError(f"the -n 100 main path exited {rc}")
+        if rc != 0:
+            raise RuntimeError(f"the -n 100 main path exited {rc}")
+        clusters_captured = []
+        sample_posterior = posterior_gibbs_cuda.posterior_gibbs
+
+        def capture_posterior(jobs):
+            clusters_captured.append(jobs)
+            return sample_posterior(jobs)
+
+        posterior_gibbs_cuda.posterior_gibbs = capture_posterior
+        try:
+            rc, _ = cli.run_cli(cs.cli_argv(bench, os.path.join(work, "hap"), "cuda", 8, "haplotypes", False)
+                                + ["--use-hap-gibbs"])
+        finally:
+            posterior_gibbs_cuda.posterior_gibbs = sample_posterior
+        if rc != 0:
+            raise RuntimeError(f"the haplotypes --use-hap-gibbs run exited {rc}")
     jobs, thin, gamma = captured[0]
     print("phases", {k: round(v, 4) for k, v in stats["phase_seconds"].items()})
 
@@ -247,6 +326,10 @@ def main() -> int:
               *[round(c / iterations) for c in cycles], same))
     micro = subprocess.run([micro_bin], capture_output=True, text=True)
     print(micro.stdout.strip())
+    report_fmad(build, gibbs_cuda, posterior_gibbs_cuda,
+                [("the -n 100 run's D2 jobs", jobs, thin, gamma),
+                 (f"{len(inputs)} seeded jobs", seeded, cs.GIBBS_THIN, 1.0)],
+                [("the haplotypes --use-hap-gibbs run's clusters", clusters_captured[0])])
     return micro.returncode
 
 

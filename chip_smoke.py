@@ -10,14 +10,18 @@ Phases (each prints at least one line; any failure exits non-zero):
 0. the card (nvidia-smi name and power limit), torch, and the port's own
    native host library (built with g++ from rpvg_tpu_torch/csrc/host at
    first use);
-1. build all four kernels (both EM kernels, both Gibbs samplers) from
-   rpvg_tpu_torch/csrc with nvcc for sm_90a, in parallel;
+1. build all six kernels (both EM kernels, the read-count and the
+   pair-score Gibbs samplers, the group scorer and the k-slot sampler) from
+   rpvg_tpu_torch/csrc with nvcc for sm_90a, in parallel, and beside them
+   a one-log probe whose SASS (cuobjdump) counts the FP64 instructions of
+   one float64 log, for the bounds of phases 11 and 12;
 2. the ragged kernel against its plain PyTorch version on the card, on a
    seeded task set shaped like the main path's phase D; its time beside
    its roofline bound, and its slowest task alone;
 3. the port's CLI with --backend cuda and --backend cpu for all four
-   models on a small gene panel: identical rows, numbers within rtol 1e-6
-   / atol 1e-6;
+   models, and haplotypes -y 3 and haplotype-transcripts -f -y 3, on a
+   small gene panel: identical rows, numbers within rtol 1e-6 / atol
+   1e-6;
 4. the main path at bench scale (haplotype-transcripts, 100k read pairs
    over 1,286 genes x 7 isoforms x 4 haplotypes), with launch counters
    reset just before and read just after; the tasks phase D hands to
@@ -46,14 +50,31 @@ Phases (each prints at least one line; any failure exits non-zero):
 8. the posterior Gibbs kernel likewise (every sampled pair equal to the
    plain version's, or the cluster within total variation 0.05; against
    the native sampler on the fixture), on seeded clusters of up to 200
-   paths and on phase 9's captured clusters, then re-timed on those.
+   paths and on phase 9's captured clusters, then re-timed on those;
+10. (run before 7, 8, 11 and 12, inside the dataset's directory) ploidy
+   3 at full width on phase 4's dataset: haplotypes -y 3,
+   haplotype-transcripts -f -y 3 and haplotypes -y 3 --use-hap-gibbs,
+   each with the counters reset just before and read just after; what
+   the group scorer and the k-slot sampler were handed is captured;
+   per run wall, pairs/s, phases, peak memory, the histogram of P and the
+   clusters the host enumeration engine took, with its seconds;
+11. the group-score kernel against its plain version on 256 seeded
+   clusters per group size 1, 3, 4 and 5 (every score within rtol 1e-10,
+   -inf where plain is) and on phase 10's captured clusters; timed beside
+   group_scores_bound, and with a broadcast table (no bank conflicts);
+12. the k-slot sampler likewise at k = 3 on 65 seeded clusters of up to
+   200 paths and at k = 1 and 4 on 17 of them (every group equal to the
+   plain version's, or the
+   cluster within total variation 0.05 of it; diverged clusters counted)
+   and on phase 10's --use-hap-gibbs clusters.
 
 Phase 3 also runs the CPU tests' seven Gibbs configurations (-n 8 for
-every abundance model, --use-hap-gibbs for both haplotype models) on
-both devices: -n runs keep their point estimates within rtol 1e-6 and
-their _gibbs.txt.gz rows within 6 standard errors; --use-hap-gibbs
-posteriors are no further apart across devices (total variation per
-cluster) than two CPU runs with different seeds.
+every abundance model, --use-hap-gibbs for both haplotype models) and
+--use-hap-gibbs at -y 3 for both haplotype models on both devices: -n
+runs keep their point estimates within rtol 1e-6 and their _gibbs.txt.gz
+rows within 6 standard errors; --use-hap-gibbs posteriors are no further
+apart across devices (total variation per cluster) than two CPU runs
+with different seeds.
 
 The last two lines are a JSON line of kernel results and
 {"ok": true, "device": {...}}.  Without CUDA the script exits 1 and
@@ -77,10 +98,15 @@ PAIRS = 100000
 # bytes per second, and the FP64 peak (tensor cores; 34 TFLOP/s without).
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 67e12
+FP64_FLOPS_NO_TENSOR = 34e12
+
+
+T_START = time.perf_counter()
 
 
 def log(line: str) -> None:
-    print(line, flush=True)
+    """Print a result line, with the script's elapsed seconds at its end."""
+    print(f"{line} [{time.perf_counter() - T_START:.0f}s]", flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -99,6 +125,21 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_once(fn):
+    """(``fn()``'s result, its milliseconds by CUDA events): one run, no
+    warm-up, for the plain versions, which take seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return result, start.elapsed_time(stop)
 
 
 def em_bound(in_bytes, out_bytes, iterations, rows, cols):
@@ -517,15 +558,34 @@ def gibbs_bound(jobs, thin):
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
-def posterior_bound(jobs):
-    """(bound ms, what bounds it) of a posterior Gibbs call: the (P, P)
-    scores read once and the sampled int32 pairs written once at the HBM
-    rate, against 4 P^2 flops (maximum, difference, exponential and sum,
-    then the division) for the CDFs plus two binary searches of
-    ceil(log2 P) comparisons per chain step, at the FP64 peak."""
+def posterior_bound(jobs, per_log=None):
+    """(bound ms, what bounds it) of a posterior Gibbs call.
+
+    Group size 2 (``PosteriorJobs``): the (P, P) scores read once and the
+    sampled int32 pairs written once at the HBM rate, against 4 P^2 flops
+    (maximum, difference, exponential and sum, then the division) for the
+    CDFs plus two binary searches of ceil(log2 P) comparisons per chain
+    step, at the FP64 peak.
+
+    k slots (``KSlotJobs``): the probabilities, noise, counts and log
+    frequencies read once and every iteration's int32 group written once
+    at the HBM rate, against the FP64 logs, sum over clusters of chains x
+    (burn + its) x k x R x P, each ``per_log`` FP64 instructions (this
+    build's SASS, ``fp64_log_instructions``) counted as one operation at
+    the FP64 peak without tensor cores (34 TFLOP/s; a lower bound, since
+    that peak counts a fused multiply-add as two)."""
     import numpy as np
 
     h = jobs.host
+    if per_log is not None:
+        R, P = h["n_rows"].astype(np.float64), h["n_cols"].astype(np.float64)
+        steps = (h["n_chains"] * (h["n_burn"] + h["n_its"])).astype(np.float64)
+        logs = float((steps * jobs.group_size * R * P).sum())
+        in_bytes = 8 * float((R * P + 2 * R + P + 11).sum())
+        out_bytes = 4 * float(h["out_offsets"][-1])
+        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        ops_ms = logs * per_log / FP64_FLOPS_NO_TENSOR * 1e3
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
     P = h["n_cols"].astype(np.float64)
     steps = (h["n_chains"] * (h["n_burn"] + h["n_its"])).astype(np.float64)
     in_bytes = 8 * float((P * P + 7).sum())
@@ -534,6 +594,56 @@ def posterior_bound(jobs):
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / FP64_FLOPS * 1e3
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def group_scores_bound(clusters, per_log):
+    """(bound ms, what bounds it) of a group-score call: probabilities,
+    noise, counts, the group tables and per-cluster words read once and
+    the float64 scores written once at the HBM rate, against the FP64
+    logs, one per (row, group) of every cluster, each ``per_log`` FP64
+    instructions (this build's SASS) counted as one operation at the FP64
+    peak without tensor cores (34 TFLOP/s; a lower bound, since that peak
+    counts a fused multiply-add as two)."""
+    import numpy as np
+
+    h = clusters.host
+    R, P = h["n_rows"].astype(np.float64), h["n_cols"].astype(np.float64)
+    logs = float((R * h["n_groups"]).sum())
+    in_bytes = 8 * float((R * P + 2 * R + 7).sum()) + 4 * clusters.table.numel()
+    out_bytes = 8 * float(h["out_offsets"][-1])
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = logs * per_log / FP64_FLOPS_NO_TENSOR * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+LOG_PROBE = r"""
+extern "C" __global__ void log_probe(const double* x, double* y) {
+  y[threadIdx.x] = log(x[threadIdx.x]);
+}
+"""
+FP64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")
+
+
+def fp64_log_instructions(work):
+    """(FP64 instructions of one double-precision log, by opcode) in the
+    SASS of a one-log kernel built with the kernels' nvcc flags for
+    sm_90a: every FP64-pipe instruction of the function, its rare paths
+    (zero, negative, denormal, infinite arguments) included."""
+    import re
+    from collections import Counter
+
+    from rpvg_tpu_torch.ops import build
+
+    src, cubin = os.path.join(work, "log_probe.cu"), os.path.join(work, "log_probe.cubin")
+    with open(src, "w") as handle:
+        handle.write(LOG_PROBE)
+    nvcc = build._nvcc()
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-o",
+                    cubin, src], check=True, capture_output=True, text=True)
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                          check=True, capture_output=True, text=True).stdout
+    ops = Counter(re.findall(r"\b(" + "|".join(FP64_OPCODES) + r")(?=[ .])", sass))
+    return sum(ops.values()), dict(ops)
 
 
 def gibbs_job_item(jobs, j):
@@ -821,6 +931,225 @@ def phase_posterior_kernel(torch, device, captured):
     }
 
 
+def compare_scores(kernel, plain):
+    """(max abs diff, max rel diff, scores out of tolerance) between two
+    host arrays of group scores: -inf where the other is -inf, the rest
+    within rtol 1e-10 (only the order of the sums over rows differs)."""
+    import numpy as np
+
+    bad = int((np.isneginf(kernel) != np.isneginf(plain)).sum())
+    bad += int((np.isnan(kernel) != np.isnan(plain)).sum())
+    finite = np.isfinite(plain) & np.isfinite(kernel)
+    diff = np.abs(kernel[finite] - plain[finite])
+    bad += int((diff > 1e-10 * np.abs(plain[finite])).sum())
+    rel = diff / np.maximum(np.abs(plain[finite]), 1e-300)
+    return (float(diff.max()) if diff.size else 0.0, float(rel.max()) if rel.size else 0.0, bad)
+
+
+def histogram_of_paths(cols):
+    """Clusters by P, in bins 1, 2-8, 9-16, 17-32, 33-64, 65-128, 129+."""
+    import numpy as np
+
+    cols = np.asarray(cols)
+    edges = [(1, 1), (2, 8), (9, 16), (17, 32), (33, 64), (65, 128), (129, None)]
+    return {
+        f"{lo}" if lo == hi else f"{lo}+" if hi is None else f"{lo}-{hi}":
+        int(((cols >= lo) & (cols <= (hi or cols.max(initial=0)))).sum())
+        for lo, hi in edges
+    }
+
+
+def phase_group_scores_kernel(torch, device, captured, per_log):
+    """Phase 11: the group-score kernel against its plain version on 256
+    seeded clusters per group size 1, 3, 4, 5 (P up to 32, 16 at k = 5;
+    one of 512 rows x P_max, rows past shared memory; one with -inf
+    groups), every score within rtol 1e-10 and -inf where plain is; timed
+    at k = 3 beside group_scores_bound, and again with every group reading
+    path 0 (a broadcast table: the same logs without bank conflicts);
+    then on the clusters phase 10's two enumeration runs handed it."""
+    import numpy as np
+
+    from rpvg_tpu_torch.ops import group_scores_cuda
+    from rpvg_tpu_torch.testing import enumeration_cluster_set
+
+    worst = 0.0
+    seeded = None
+    for k in (1, 3, 4, 5):
+        clusters = enumeration_cluster_set(256, seed=80 + k, group_size=k)
+        packed = group_scores_cuda.make_clusters([c[:3] for c in clusters], k, device)
+        kernel = group_scores_cuda.group_scores(packed)
+        again = group_scores_cuda.group_scores(packed)
+        torch.cuda.synchronize()
+        if not torch.equal(kernel, again):
+            raise AssertionError("group-score kernel is not deterministic across runs")
+        plain, plain_ms = timed_once(lambda: group_scores_cuda.group_scores_ragged_plain(packed))
+        max_abs, max_rel, n_bad = compare_scores(kernel.cpu().numpy(), plain.cpu().numpy())
+        h = packed.host
+        log(
+            f"phase 11: group scores, k = {k}: {len(clusters)} seeded clusters (P "
+            f"{int(h['n_cols'].min())}-{int(h['n_cols'].max())}, R max {int(h['n_rows'].max())}, "
+            f"{int(h['out_offsets'][-1])} groups, {int(np.isneginf(plain.cpu().numpy()).sum())} "
+            f"-inf), kernel vs plain max abs {max_abs:.3e} max rel {max_rel:.3e}, {n_bad} out of "
+            f"rtol 1e-10 or -inf"
+        )
+        if n_bad:
+            raise AssertionError(f"group-score kernel disagrees with plain version at k = {k}")
+        worst = max(worst, max_abs)
+        if k == 3:
+            seeded, seeded_plain_ms = packed, plain_ms
+    kernel_ms = cuda_ms(lambda: group_scores_cuda.group_scores(seeded), reps=10)
+    plain_ms = seeded_plain_ms
+    bound_ms, bound_by = group_scores_bound(seeded, per_log)
+    broadcast = group_scores_cuda.GroupClusters(
+        **{**seeded.__dict__, "table": torch.zeros_like(seeded.table)}
+    )
+    broadcast_ms = cuda_ms(lambda: group_scores_cuda.group_scores(broadcast), reps=10)
+    log(
+        f"phase 11: group scores at k = 3 on the seeded set: kernel {kernel_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (CUDA events), bound {bound_ms:.5f} ms ({bound_by}; {per_log} FP64 "
+        f"instructions per log); every group reading path 0 (no bank conflicts) "
+        f"{broadcast_ms:.3f} ms"
+    )
+
+    report = {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "broadcast_table_ms": broadcast_ms}
+    for run, calls in captured.items():
+        if len(calls) != 1:
+            raise AssertionError(f"{run}: phase B called the group scorer {len(calls)} times")
+        (packed,) = calls
+        kernel = group_scores_cuda.group_scores(packed)
+        run_ms = cuda_ms(lambda: group_scores_cuda.group_scores(packed), reps=5)
+        t0 = time.perf_counter()
+        plain = group_scores_cuda.group_scores_ragged_plain(packed)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        max_abs, max_rel, n_bad = compare_scores(kernel.cpu().numpy(), plain.cpu().numpy())
+        run_bound, run_by = group_scores_bound(packed, per_log)
+        h = packed.host
+        log(
+            f"phase 11: the {run} run's {packed.n_clusters} clusters (P median "
+            f"{int(np.median(h['n_cols']))} max {int(h['n_cols'].max())}, "
+            f"{int(h['out_offsets'][-1])} groups): vs plain max abs {max_abs:.3e} max rel "
+            f"{max_rel:.3e}, {n_bad} out of rtol 1e-10 or -inf, plain {plain_s:.2f} s; re-timed: "
+            f"kernel {run_ms:.3f} ms (CUDA events), bound {run_bound:.5f} ms ({run_by})"
+        )
+        if n_bad:
+            raise AssertionError(f"{run}: group-score kernel disagrees with plain version")
+        report["max_abs_err"] = max(report["max_abs_err"], max_abs)
+        report[f"{run}_clusters"] = packed.n_clusters
+        report[f"{run}_ms"] = run_ms
+        report[f"{run}_bound_ms"] = run_bound
+    return report
+
+
+def k_slot_posteriors(posteriors, jobs, samples):
+    """Per cluster, sorted group -> sample frequency, of k-slot samples."""
+    return [dict(zip(map(tuple, groups), freqs)) for groups, freqs in
+            posteriors._group_sample_posteriors(samples, jobs.host, jobs.group_size)]
+
+
+def held_to_plain(posteriors, jobs, kernel, plain):
+    """(diverged clusters, worst total variation among them, largest
+    difference of one group's posterior) of a k-slot kernel run against
+    the plain version; raises when a diverged cluster's total variation
+    reaches TV_MAX."""
+    diverged = diverged_clusters(jobs, kernel, plain)
+    k_post = k_slot_posteriors(posteriors, jobs, kernel)
+    p_post = k_slot_posteriors(posteriors, jobs, plain)
+    worst_tv = max((total_variation(k_post[b], p_post[b]) for b in diverged), default=0.0)
+    if worst_tv >= TV_MAX:
+        raise AssertionError(f"k-slot kernel: a diverged cluster at total variation {worst_tv:.3f}")
+    max_abs = max(
+        (abs(a.get(g, 0.0) - z.get(g, 0.0)) for a, z in zip(k_post, p_post) for g in set(a) | set(z)),
+        default=0.0,
+    )
+    return diverged, worst_tv, max_abs
+
+
+def phase_posterior_k_kernel(torch, device, captured, per_log):
+    """Phase 12: the k-slot posterior sampler against its plain version
+    on seeded clusters of 1-120 paths and one of 200 paths x 150 rows
+    (past shared memory), 64 of them at k = 3 and the first 16 at k = 1
+    and 4 (the plain version steps every chain k x (burn + its) times):
+    every sampled group equal, or
+    the cluster's posterior within total variation 0.05 of the plain
+    version's (the diverged clusters counted); timed at k = 3 beside its
+    bound; then on the clusters of phase 10's haplotypes -y 3
+    --use-hap-gibbs run, likewise, and re-timed."""
+    import numpy as np
+
+    from rpvg_tpu_torch import prng
+    from rpvg_tpu_torch.infer import posteriors
+    from rpvg_tpu_torch.ops import posterior_gibbs_k_cuda
+    from rpvg_tpu_torch.testing import posterior_cluster_set, posterior_wide_cluster
+
+    wide = posterior_wide_cluster(200, 93, n_rows=150)
+    seeded_set = posterior_cluster_set(64, seed=91, max_paths=120)
+    report = {"max_abs_err": 0.0}
+    seeded = None
+    for k in (1, 3, 4):
+        clusters = (seeded_set if k == 3 else seeded_set[:16]) + [wide]
+        keys = prng.split(prng.prng_key(94 + k), len(clusters))
+        jobs = posteriors.posterior_gibbs_k_jobs(clusters, k, keys, device)
+        plan = posterior_gibbs_k_cuda.plan_launches(jobs.host["n_rows"], jobs.host["n_cols"], k)
+        kernel = posterior_gibbs_k_cuda.posterior_gibbs_k(jobs)
+        again = posterior_gibbs_k_cuda.posterior_gibbs_k(jobs)
+        torch.cuda.synchronize()
+        if not torch.equal(kernel, again):
+            raise AssertionError("k-slot kernel is not deterministic across runs")
+        plain, plain_ms = timed_once(lambda: posterior_gibbs_k_cuda.posterior_gibbs_k_plain(jobs))
+        diverged, worst_tv, max_abs = held_to_plain(
+            posteriors, jobs, kernel.cpu().numpy(), plain.cpu().numpy()
+        )
+        unstaged = sum(lc.tasks.size for lc in plan if not lc.staged)
+        log(
+            f"phase 12: k-slot sampler, k = {k}: {len(clusters)} seeded clusters ({unstaged} past "
+            f"shared memory, {int(jobs.host['n_chains'].sum())} chains in {len(jobs.launches)} "
+            f"launches): "
+            f"{len(clusters) - len(diverged)} with every group equal to plain, {len(diverged)} "
+            f"diverged (worst total variation {worst_tv:.4f}, allowed {TV_MAX}); largest "
+            f"posterior difference {max_abs:.4f}"
+        )
+        report["max_abs_err"] = max(report["max_abs_err"], max_abs)
+        report[f"diverged_clusters_k{k}"] = len(diverged)
+        if k == 3:
+            seeded, seeded_plain_ms = jobs, plain_ms
+    kernel_ms = cuda_ms(lambda: posterior_gibbs_k_cuda.posterior_gibbs_k(seeded), reps=5)
+    plain_ms = seeded_plain_ms
+    bound_ms, bound_by = posterior_bound(seeded, per_log)
+    log(
+        f"phase 12: k-slot sampler at k = 3 on the {seeded.n_clusters} seeded clusters: kernel "
+        f"{kernel_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (CUDA events), bound {bound_ms:.5f} ms ({bound_by})"
+    )
+    report.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    if len(captured) != 1:
+        raise AssertionError(f"phase B called the k-slot sampler {len(captured)} times, not once")
+    (main,) = captured
+    kernel = posterior_gibbs_k_cuda.posterior_gibbs_k(main).cpu().numpy()
+    main_ms = cuda_ms(lambda: posterior_gibbs_k_cuda.posterior_gibbs_k(main), reps=3)
+    t0 = time.perf_counter()
+    plain = posterior_gibbs_k_cuda.posterior_gibbs_k_plain(main).cpu().numpy()
+    plain_s = time.perf_counter() - t0
+    diverged, worst_tv, max_abs = held_to_plain(posteriors, main, kernel, plain)
+    main_bound, main_by = posterior_bound(main, per_log)
+    log(
+        f"phase 12: the haplotypes -y 3 --use-hap-gibbs run's {main.n_clusters} clusters (P median "
+        f"{int(np.median(main.host['n_cols']))} max {int(main.host['n_cols'].max())}, "
+        f"{int(main.host['n_chains'].sum())} chains): {main.n_clusters - len(diverged)} with every "
+        f"group equal to plain, {len(diverged)} diverged (worst total variation {worst_tv:.4f}, "
+        f"allowed {TV_MAX}), plain {plain_s:.2f} s; re-timed: kernel {main_ms:.3f} ms (CUDA "
+        f"events), bound {main_bound:.5f} ms ({main_by})"
+    )
+    report.update(
+        max_abs_err=max(report["max_abs_err"], max_abs), main_path_clusters=main.n_clusters,
+        main_path_diverged_clusters=len(diverged), main_path_clusters_ms=main_ms,
+        main_path_clusters_bound_ms=main_bound,
+    )
+    return report
+
+
 GIBBS_CONFIGS = (
     # (label, model, -f, extra flags, -n)
     ("transcripts -n 8", "transcripts", False, ("-n", "8"), True),
@@ -832,6 +1161,10 @@ GIBBS_CONFIGS = (
      ("--use-hap-gibbs",), False),
     ("haplotype-transcripts -n 8 --use-hap-gibbs", "haplotype-transcripts", True,
      ("-n", "8", "--use-hap-gibbs"), True),
+    ("haplotypes -y 3 --use-hap-gibbs", "haplotypes", False, ("-y", "3", "--use-hap-gibbs"),
+     False),
+    ("haplotype-transcripts -y 3 --use-hap-gibbs", "haplotype-transcripts", True,
+     ("-y", "3", "--use-hap-gibbs"), False),
 )
 
 
@@ -848,8 +1181,9 @@ def cluster_posteriors(stats):
 
 
 def phase_gibbs_cli(cli, compare, small, work, threads):
-    """Phase 3, Gibbs runs: the CPU tests' seven configurations with
-    --backend cuda and cpu at 5k pairs.  -n runs: .txt within rtol 1e-6
+    """Phase 3, Gibbs runs: the CPU tests' seven configurations and
+    --use-hap-gibbs at -y 3 for both haplotype models, with --backend
+    cuda and cpu at 5k pairs.  -n runs: .txt within rtol 1e-6
     (Gibbs does not touch point estimates) and _gibbs.txt.gz rows within
     6 se.  --use-hap-gibbs runs: per cluster total variation between the
     devices, against the same between two CPU seeds."""
@@ -955,19 +1289,28 @@ def output_suffixes(model):
 
 def reset_counters():
     from rpvg_tpu_torch.infer import posteriors
-    from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda, gibbs_cuda, posterior_gibbs_cuda
+    from rpvg_tpu_torch.ops import (
+        em_cuda, em_fused_cuda, gibbs_cuda, group_scores_cuda, posterior_gibbs_cuda,
+        posterior_gibbs_k_cuda,
+    )
 
     em_cuda.LAUNCHES = em_cuda.TASKS = 0
     em_fused_cuda.LAUNCHES = em_fused_cuda.TASKS = em_fused_cuda.BLOCKS = 0
     gibbs_cuda.LAUNCHES = gibbs_cuda.JOBS = 0
     posterior_gibbs_cuda.LAUNCHES = posterior_gibbs_cuda.CLUSTERS = 0
+    group_scores_cuda.LAUNCHES = group_scores_cuda.CLUSTERS = 0
+    posterior_gibbs_k_cuda.LAUNCHES = posterior_gibbs_k_cuda.CLUSTERS = 0
     for key in posteriors.SCORED_CLUSTERS:
         posteriors.SCORED_CLUSTERS[key] = 0
+    posteriors.HOST_ENUMERATION.update(clusters=0, seconds=0.0)
 
 
 def read_counters():
     from rpvg_tpu_torch.infer import posteriors
-    from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda, gibbs_cuda, posterior_gibbs_cuda
+    from rpvg_tpu_torch.ops import (
+        em_cuda, em_fused_cuda, gibbs_cuda, group_scores_cuda, posterior_gibbs_cuda,
+        posterior_gibbs_k_cuda,
+    )
 
     return {
         "ragged_launches": em_cuda.LAUNCHES, "ragged_tasks": em_cuda.TASKS,
@@ -976,16 +1319,24 @@ def read_counters():
         "gibbs_launches": gibbs_cuda.LAUNCHES, "gibbs_jobs": gibbs_cuda.JOBS,
         "posterior_launches": posterior_gibbs_cuda.LAUNCHES,
         "posterior_clusters": posterior_gibbs_cuda.CLUSTERS,
+        "group_launches": group_scores_cuda.LAUNCHES,
+        "group_clusters": group_scores_cuda.CLUSTERS,
+        "posterior_k_launches": posterior_gibbs_k_cuda.LAUNCHES,
+        "posterior_k_clusters": posterior_gibbs_k_cuda.CLUSTERS,
         "scored_cuda": posteriors.SCORED_CLUSTERS.get("cuda", 0),
         "scored_cpu": posteriors.SCORED_CLUSTERS.get("cpu", 0),
+        "host_enumeration": posteriors.HOST_ENUMERATION["clusters"],
     }
 
 
-def check_routes(model, fused, stats, counts, hap_gibbs=False):
-    """The run's device work went through the kernels and the cuda pair
-    scorer: every EM task in the route's kernel, none in the other; every
-    Gibbs job and (with --use-hap-gibbs) every scored cluster in its
-    sampler kernel."""
+def check_routes(model, fused, stats, counts, hap_gibbs=False, ploidy=2):
+    """The run's device work went through the kernels and the cuda
+    scorers: every EM task in the route's kernel, none in the other; every
+    Gibbs job and (with --use-hap-gibbs) every cluster of phase B in its
+    sampler kernel (the pair-score sampler at ploidy 2, the k-slot sampler
+    otherwise); without it at ploidy != 2 every cluster of phase B in the
+    group-score kernel but those over the enumeration limit, which the
+    host engine takes."""
     em_tasks = stats.get("em_tasks", 0)
     if fused:
         ok = (
@@ -996,13 +1347,22 @@ def check_routes(model, fused, stats, counts, hap_gibbs=False):
         ok = counts["fused_launches"] == 0 and counts["ragged_tasks"] == em_tasks and (
             counts["ragged_launches"] >= 1 or em_tasks == 0
         )
+    scored = stats.get("scored_clusters", 0)
+    host = stats.get("enumeration_fallback_clusters", 0)
+    enumeration = not hap_gibbs and ploidy != 2
     if model in ("haplotypes", "haplotype-transcripts"):
-        ok = ok and counts["scored_cuda"] == stats["scored_clusters"] and not counts["scored_cpu"]
+        on_card = 0 if hap_gibbs and ploidy != 2 else scored - host
+        ok = ok and counts["scored_cuda"] == on_card and counts["scored_cpu"] == host
+        ok = ok and counts["host_enumeration"] == host and (host == 0 or enumeration)
     gibbs_jobs = stats.get("gibbs_jobs", 0)
     ok = ok and counts["gibbs_jobs"] == gibbs_jobs and (counts["gibbs_launches"] >= 1) == (gibbs_jobs > 0)
-    posterior = stats["scored_clusters"] if hap_gibbs else 0
-    ok = ok and counts["posterior_clusters"] == posterior and (
-        counts["posterior_launches"] >= 1) == (posterior > 0)
+    for prefix, clusters in (
+        ("posterior", scored if hap_gibbs and ploidy == 2 else 0),
+        ("posterior_k", scored if hap_gibbs and ploidy != 2 else 0),
+        ("group", scored - host if enumeration else 0),
+    ):
+        ok = ok and counts[f"{prefix}_clusters"] == clusters and (
+            counts[f"{prefix}_launches"] >= 1) == (clusters > 0)
     if not ok:
         raise AssertionError(f"{model}: device work not all through the kernels: {counts}")
 
@@ -1032,7 +1392,9 @@ def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, thr
     if rc != 0:
         raise RuntimeError(f"bench-scale {model} run exited {rc}")
     rows = [check_estimate_file(prefix + s) for s in output_suffixes(model)]
-    check_routes(model, fused, stats, counts, hap_gibbs="--use-hap-gibbs" in extra)
+    ploidy = int(extra[list(extra).index("-y") + 1]) if "-y" in extra else 2
+    check_routes(model, fused, stats, counts, hap_gibbs="--use-hap-gibbs" in extra,
+                 ploidy=ploidy)
     gibbs = ""
     if "-n" in extra:
         from rpvg_tpu_torch.compare import read_gibbs_file
@@ -1044,9 +1406,16 @@ def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, thr
                  f"{counts['gibbs_launches']} launch(es), _gibbs.txt.gz {len(gibbs_rows)} rows x "
                  f"{len(header) - 2} samples, all finite, its writer "
                  f"{gibbs_writer_seconds(stats)}")
-    if "--use-hap-gibbs" in extra:
+    if "--use-hap-gibbs" in extra and ploidy == 2:
         gibbs += (f", {counts['posterior_clusters']} clusters through the posterior kernel in "
                   f"{counts['posterior_launches']} launch(es)")
+    elif "--use-hap-gibbs" in extra:
+        gibbs += (f", {counts['posterior_k_clusters']} clusters through the k-slot kernel in "
+                  f"{counts['posterior_k_launches']} launch(es)")
+    elif ploidy != 2:
+        gibbs += (f", {counts['group_clusters']} clusters through the group-score kernel in "
+                  f"{counts['group_launches']} launch(es), {counts['host_enumeration']} on the "
+                  f"host engine in {stats['enumeration_fallback_seconds']:.2f}s")
     phases = ", ".join(f"{k} {v:.3f}s" for k, v in stats["phase_seconds"].items())
     route = "multi-bucket kernel" if fused else "ragged kernel"
     em = (
@@ -1067,6 +1436,82 @@ def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, thr
         f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB"
     )
     return stats, counts
+
+
+PLOIDY_RUNS = (
+    # (key, model, -f, extra flags)
+    ("haplotypes", "haplotypes", False, ("-y", "3")),
+    ("haplotype-transcripts", "haplotype-transcripts", True, ("-y", "3")),
+    ("hap-gibbs", "haplotypes", False, ("-y", "3", "--use-hap-gibbs")),
+)
+
+
+def phase_full_width_ploidy(torch, device, cli, check_estimate_file, bench, work, threads):
+    """Phase 10: haplotypes -y 3, haplotype-transcripts -f -y 3 and
+    haplotypes -y 3 --use-hap-gibbs on phase 4's dataset, each with the
+    counters reset just before and read just after; what each run handed
+    the group-score kernel and the k-slot sampler is captured (the script
+    wraps both entries), and so are the P of phase B's clusters.  Prints
+    per run the phase-4 line, then phase B's engine, the histogram of P
+    and the clusters the host enumeration engine took, with its seconds.
+    Returns (scores captured by run, k-slot jobs captured, launches of
+    each kernel in its main-path run)."""
+    from rpvg_tpu_torch.infer import batched_models, posteriors
+    from rpvg_tpu_torch.ops import group_scores_cuda, posterior_gibbs_k_cuda
+
+    score, sample = group_scores_cuda.group_scores, posterior_gibbs_k_cuda.posterior_gibbs_k
+    full, gibbs = batched_models.full_posteriors_batched, batched_models.path_group_posteriors_gibbs_batched
+    current = [None]
+    scores, jobs, paths = {}, {}, {}
+
+    def capture_scores(clusters):
+        scores.setdefault(current[0], []).append(clusters)
+        return score(clusters)
+
+    def capture_jobs(k_jobs):
+        jobs.setdefault(current[0], []).append(k_jobs)
+        return sample(k_jobs)
+
+    def record_full(inputs, group_size, device):
+        paths[current[0]] = [item[0].shape[1] for item in inputs]
+        return full(inputs, group_size, device)
+
+    def record_gibbs(inputs, group_size, keys, device):
+        paths[current[0]] = [item[0].shape[1] for item in inputs]
+        return gibbs(inputs, group_size, keys, device)
+
+    launches = {}
+    group_scores_cuda.group_scores, posterior_gibbs_k_cuda.posterior_gibbs_k = capture_scores, capture_jobs
+    batched_models.full_posteriors_batched = record_full
+    batched_models.path_group_posteriors_gibbs_batched = record_gibbs
+    try:
+        for key, model, info, extra in PLOIDY_RUNS:
+            current[0] = key
+            stats, counts = bench_run(torch, device, cli, check_estimate_file, 10, bench,
+                                      os.path.join(work, f"ploidy_{key}"), threads, model, info,
+                                      extra=extra)
+            launches[key] = counts
+            ploidy = int(extra[1])
+            limit = posteriors._FULL_ENUM_GROUP_LIMIT
+            over = sorted(
+                P for P in paths[key]
+                if math.comb(posteriors._ceil_pow2(P) + ploidy - 1, ploidy) > limit
+            ) if "--use-hap-gibbs" not in extra else []
+            log(
+                f"phase 10: {model}{' -f' if info else ''} {' '.join(extra)}: phase B "
+                f"({stats['group_engine']}) {stats['phase_seconds']['B']:.3f}s; P of its "
+                f"{len(paths[key])} clusters: {histogram_of_paths(paths[key])}; "
+                f"{stats['enumeration_fallback_clusters']} clusters on the host enumeration "
+                f"engine (P {over}) in {stats['enumeration_fallback_seconds']:.3f}s"
+            )
+    finally:
+        group_scores_cuda.group_scores, posterior_gibbs_k_cuda.posterior_gibbs_k = score, sample
+        batched_models.full_posteriors_batched = full
+        batched_models.path_group_posteriors_gibbs_batched = gibbs
+    return (
+        scores, jobs.get("hap-gibbs", []),
+        launches["haplotypes"]["group_launches"], launches["hap-gibbs"]["posterior_k_launches"],
+    )
 
 
 def main() -> int:
@@ -1092,19 +1537,28 @@ def main() -> int:
     from rpvg_tpu_torch.compare import check_estimate_file, compare_estimate_files
     from rpvg_tpu_torch.infer import posteriors
     from rpvg_tpu_torch.io import rpa
-    from rpvg_tpu_torch.ops import build, em_cuda, em_fused_cuda, gibbs_cuda, posterior_gibbs_cuda
+    from rpvg_tpu_torch.ops import (
+        build, em_cuda, em_fused_cuda, gibbs_cuda, group_scores_cuda, posterior_gibbs_cuda,
+        posterior_gibbs_k_cuda,
+    )
 
     t0 = time.perf_counter()
     if native.load_library() is None:
         raise RuntimeError("the native host library did not build")
     log(f"phase 0: native host library ready in {time.perf_counter() - t0:.1f}s")
 
-    # Phase 1: build all four kernels from the checkout's sources, one nvcc each.
+    # Phase 1: build all six kernels from the checkout's sources, one nvcc
+    # each, and beside them a one-log probe whose SASS counts the FP64
+    # instructions of a log (the group-score and k-slot bounds).
     names = (em_cuda.KERNEL_NAME, em_fused_cuda.KERNEL_NAME, gibbs_cuda.KERNEL_NAME,
-             posterior_gibbs_cuda.KERNEL_NAME)
+             posterior_gibbs_cuda.KERNEL_NAME, group_scores_cuda.KERNEL_NAME,
+             posterior_gibbs_k_cuda.KERNEL_NAME)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool, \
+            tempfile.TemporaryDirectory(prefix="rpvg_probe_") as probe_dir:
+        probe = pool.submit(fp64_log_instructions, probe_dir)
         builds = list(pool.map(lambda name: build.build_library(name, force=True), names))
+        per_log, log_ops = probe.result()
     build_s = time.perf_counter() - t0
     for name, (lib_path, ptxas) in zip(names, builds):
         ptxas_lines = [ln.strip() for ln in ptxas.splitlines() if ln.strip()]
@@ -1114,6 +1568,8 @@ def main() -> int:
             f"{' '.join(build.NVCC_FLAGS)} ({len(names)} builds in parallel, "
             f"{build_s:.1f}s); ptxas: " + " | ".join(ptxas_lines)
         )
+    log(f"phase 1: one float64 log is {per_log} FP64 instructions in the SASS of a one-log "
+        f"kernel built for sm_90a ({log_ops})")
 
     # Phase 2: ragged kernel vs plain version.
     em = phase_kernel(torch, device)
@@ -1123,24 +1579,28 @@ def main() -> int:
         # Phase 3: every model agrees with itself across devices.
         small = write_dataset(sim, rpa, alignments, work,
                               num_genes=60, num_pairs=5000, seed_panel=23, seed_reads=29)
-        for model in ("haplotype-transcripts", "transcripts", "strains", "haplotypes"):
+        for model, extra in (
+            ("haplotype-transcripts", ()), ("transcripts", ()), ("strains", ()),
+            ("haplotypes", ()), ("haplotypes", ("-y", "3")), ("haplotype-transcripts", ("-y", "3")),
+        ):
             info = model == "haplotype-transcripts"
+            name = f"small_{model}{'_y3' if extra else ''}"
             reports = []
             for backend in ("cuda", "cpu"):
-                prefix = os.path.join(work, f"small_{model}_{backend}")
-                rc = cli.main(cli_argv(small, prefix, backend, threads, model, info))
+                prefix = os.path.join(work, f"{name}_{backend}")
+                rc = cli.main(cli_argv(small, prefix, backend, threads, model, info) + list(extra))
                 if rc != 0:
-                    raise RuntimeError(f"{model} CLI --backend {backend} exited {rc}")
+                    raise RuntimeError(f"{model} {' '.join(extra)} CLI --backend {backend} exited {rc}")
             for suffix in output_suffixes(model):
                 rep = compare_estimate_files(
-                    os.path.join(work, f"small_{model}_cuda{suffix}"),
-                    os.path.join(work, f"small_{model}_cpu{suffix}"), RTOL, ATOL_OUT,
+                    os.path.join(work, f"{name}_cuda{suffix}"),
+                    os.path.join(work, f"{name}_cpu{suffix}"), RTOL, ATOL_OUT,
                 )
                 reports.append(f"{suffix} {rep['rows']} rows, max abs {rep['max_abs_diff']:.3e}, "
                                f"max rel {rep['max_rel_diff']:.3e}, byte-identical "
                                f"{rep['byte_identical']}")
-            log(f"phase 3: {model}, 5000 pairs, --backend cuda vs cpu: rows identical; "
-                + "; ".join(reports))
+            log(f"phase 3: {model}{' ' + ' '.join(extra) if extra else ''}, 5000 pairs, "
+                f"--backend cuda vs cpu: rows identical; " + "; ".join(reports))
         phase_gibbs_cli(cli, compare, small, work, threads)
 
         # Phase 4: the main path at bench scale.
@@ -1255,9 +1715,16 @@ def main() -> int:
         gibbs_launches = runs["main"][1]["gibbs_launches"]
         posterior_launches = runs["haplotypes"][1]["posterior_launches"]
 
-    # Phases 7 and 8: the two Gibbs samplers.
+        # Phase 10: ploidy 3 at full width on phase 4's dataset.
+        scores_captured, k_captured, group_launches, k_launches = phase_full_width_ploidy(
+            torch, device, cli, check_estimate_file, bench, work, threads
+        )
+
+    # Phases 7 and 8: the two Gibbs samplers; 11 and 12: the ploidy-k kernels.
     gibbs = phase_gibbs_kernel(torch, device, gibbs_captured)
     posterior = phase_posterior_kernel(torch, device, posterior_captured)
+    scores = phase_group_scores_kernel(torch, device, scores_captured, per_log)
+    k_slot = phase_posterior_k_kernel(torch, device, k_captured, per_log)
 
 
     kernels = [
@@ -1336,6 +1803,47 @@ def main() -> int:
             "main_path_diverged_clusters": posterior["main_path_diverged_clusters"],
             "main_path_clusters_ms": posterior["main_path_clusters_ms"],
             "main_path_clusters_bound_ms": posterior["main_path_clusters_bound_ms"],
+        },
+        {
+            "name": group_scores_cuda.KERNEL_NAME,
+            "route": "cuda",
+            "source": "rpvg_tpu_torch/csrc/group_scores.cu",
+            "replaces": "rpvg_tpu/infer/posteriors.py:901",
+            "launches": group_launches,
+            "max_abs_err": scores["max_abs_err"],
+            "ms": scores["ms"],
+            "plain_ms": scores["plain_ms"],
+            "bound_ms": scores["bound_ms"],
+            "bound_by": scores["bound_by"],
+            "library_ms": None,
+            "launches_per_main_path_run": group_launches,
+            "main_path_run": "haplotypes -y 3",
+            "fp64_instructions_per_log": per_log,
+            "broadcast_table_ms": scores["broadcast_table_ms"],
+            "main_path_clusters": scores["haplotypes_clusters"],
+            "main_path_clusters_ms": scores["haplotypes_ms"],
+            "main_path_clusters_bound_ms": scores["haplotypes_bound_ms"],
+            "nested_run_clusters_ms": scores["haplotype-transcripts_ms"],
+        },
+        {
+            "name": posterior_gibbs_k_cuda.KERNEL_NAME,
+            "route": "cuda",
+            "source": "rpvg_tpu_torch/csrc/gibbs_posterior_k.cu",
+            "replaces": "rpvg_tpu/infer/posteriors.py:661",
+            "launches": k_launches,
+            "max_abs_err": k_slot["max_abs_err"],
+            "ms": k_slot["ms"],
+            "plain_ms": k_slot["plain_ms"],
+            "bound_ms": k_slot["bound_ms"],
+            "bound_by": k_slot["bound_by"],
+            "library_ms": None,
+            "launches_per_main_path_run": k_launches,
+            "main_path_run": "haplotypes -y 3 --use-hap-gibbs",
+            "diverged_clusters": {k: v for k, v in k_slot.items() if k.startswith("diverged")},
+            "main_path_clusters": k_slot["main_path_clusters"],
+            "main_path_diverged_clusters": k_slot["main_path_diverged_clusters"],
+            "main_path_clusters_ms": k_slot["main_path_clusters_ms"],
+            "main_path_clusters_bound_ms": k_slot["main_path_clusters_bound_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,14 +1,16 @@
 """Whole-population batched inference of the four models on one device
 (counterpart of ``rpvg_tpu/infer/batched_models.py``).
 
-``haplotype-transcripts`` (collapsed groups, ploidy 2) is the staged
+``haplotype-transcripts`` (collapsed groups, any ploidy k) is the staged
 route of ``batched_haplotype_transcripts`` (``RPVG_TPU_FUSED_NESTED=0``
 in the JAX package), five phases over every cluster at once, and a sixth
 with read-count Gibbs sampling (``-n``):
 
 * A (host): grouped probability matrices, one threaded native call;
-* B (device): diploid pair scoring, selection on the host; or, under
-  ``--use-hap-gibbs``, the collapsed Gibbs sampler over the pair scores;
+* B (device): the group posteriors: diploid pair scoring with selection
+  on the host at k = 2, the full enumeration of k-multisets otherwise;
+  or, under ``--use-hap-gibbs``, the collapsed Gibbs sampler (over the
+  pair scores at k = 2, over k slots otherwise);
 * C (host): subset selection and the EM task matrices;
 * D (device): one EM run over every (cluster, subset) task;
 * D2 (device): read-count Gibbs sampling of the subsets that the host
@@ -20,7 +22,7 @@ The other models run a subset of the same phases:
 * ``transcripts``: A (noise-normalised matrices), D, D2, E (abundances);
 * ``strains``: C (greedy minimum path cover per cluster and the cover
   sub-matrices, the staged route of ``batched_strains``), D, D2, E;
-* ``haplotypes`` at ploidy 2: A (matrices), B, E (posteriors).
+* ``haplotypes``: A (matrices), B, E (posteriors).
 
 Random keys replay the JAX package's per-cluster streams exactly (the
 port's threefry, :mod:`rpvg_tpu_torch.prng`): a cluster's keys are
@@ -59,14 +61,16 @@ from rpvg_tpu_torch.infer.estimators import (
     PathGroupPosteriorEstimator,
 )
 from rpvg_tpu_torch.infer.posteriors import (
+    HOST_ENUMERATION,
     diploid_posteriors_batched,
+    full_posteriors_batched,
     path_group_posteriors_gibbs_batched,
 )
 from rpvg_tpu_torch.infer.readcount_gibbs import run_batched_gibbs
 
 PHASES = (
     ("A", "grouped matrices"),
-    ("B", "diploid posteriors"),
+    ("B", "group posteriors"),
     ("C", "subset selection"),
     ("D", "batched EM"),
     ("D2", "batched Gibbs"),
@@ -97,24 +101,38 @@ def _flat_group_spec(groups: List[List[int]]) -> Tuple[np.ndarray, int]:
 
 
 def supports_batched_nested(estimator) -> bool:
-    """Collapsed-group, ploidy-2 nested inference, with or without
+    """Collapsed-group nested inference at any ploidy, with or without
     Gibbs sampling: the configurations batched_haplotype_transcripts
     runs."""
-    return (
-        isinstance(estimator, NestedPathAbundanceEstimator)
-        and estimator.infer_collapsed
-        and estimator.group_size == 2
-    )
+    return isinstance(estimator, NestedPathAbundanceEstimator) and estimator.infer_collapsed
 
 
 def _group_posteriors_batched(inputs, group_size: int, min_rel_likelihood: float, device):
     """Non-Gibbs group posteriors for many clusters: dense diploid
-    scoring (group size 2 is the only one ported)."""
+    scoring at group size 2, exhaustive enumeration otherwise — the
+    batched twin of PathPosteriorEstimator._group_posteriors."""
     if group_size == 2:
         return diploid_posteriors_batched(inputs, min_rel_likelihood, device)
-    raise NotImplementedError(
-        f"group size {group_size} is not yet ported (ROADMAP queue 1, item 10)"
-    )
+    return full_posteriors_batched(inputs, group_size, device)
+
+
+def _group_engine(group_size: int, gibbs: bool) -> str:
+    """Phase B's label: the engine that computes the group posteriors."""
+    if gibbs:
+        return f"posterior Gibbs, {group_size} slots"
+    if group_size == 2:
+        return "diploid posteriors"
+    return f"full enumeration, group size {group_size}"
+
+
+def _fallback_since(before: Dict[str, float]) -> Dict:
+    """The clusters and seconds of the full enumeration's host engine
+    since ``before`` (a copy of ``posteriors.HOST_ENUMERATION``)."""
+    now = HOST_ENUMERATION
+    return {
+        "enumeration_fallback_clusters": int(now["clusters"] - before["clusters"]),
+        "enumeration_fallback_seconds": now["seconds"] - before["seconds"],
+    }
 
 
 class _PhaseClock:
@@ -144,10 +162,13 @@ def batched_haplotype_transcripts(
     cluster_data index to the cluster's rank (identity when None), which
     with ``rng_seed`` keys its random streams.  Returns the seconds of
     phases A-E and D2 (``phase_seconds``), the number of clusters scored
-    in phase B (``scored_clusters``), of EM tasks in phase D
-    (``em_tasks``) and of Gibbs jobs in phase D2 (``gibbs_jobs``)."""
+    in phase B (``scored_clusters``) and its engine (``group_engine``),
+    the clusters and seconds of the full enumeration's host engine
+    (``enumeration_fallback_clusters``, ``_seconds``), the number of EM
+    tasks in phase D (``em_tasks``) and of Gibbs jobs in phase D2
+    (``gibbs_jobs``)."""
     if not supports_batched_nested(estimator):
-        raise NotImplementedError("only collapsed, ploidy-2 haplotype-transcripts is ported")
+        raise NotImplementedError("only collapsed haplotype-transcripts is ported")
     clock = _PhaseClock(device)
     rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
     # Object writers only: the native output composer reads columnar
@@ -186,9 +207,11 @@ def batched_haplotype_transcripts(
             inputs.append((g_probs, g_noise, g_counts, source_counts))
     clock.lap(*PHASES[0])
 
-    # Phase B (device): dense diploid scoring for every cluster, or the
-    # collapsed Gibbs sampler under --use-hap-gibbs (consuming each
-    # cluster's first key, as the per-cluster estimator does).
+    # Phase B (device): dense diploid scoring or the full enumeration for
+    # every cluster, or the collapsed Gibbs sampler under --use-hap-gibbs
+    # (consuming each cluster's first key, as the per-cluster estimator
+    # does).
+    fallback = dict(HOST_ENUMERATION)
     if estimator.use_group_post_gibbs:
         posterior_results = path_group_posteriors_gibbs_batched(
             inputs, estimator.group_size,
@@ -198,7 +221,9 @@ def batched_haplotype_transcripts(
         posterior_results = _group_posteriors_batched(
             inputs, estimator.group_size, estimator.min_hap_prob, device
         )
-    clock.lap(*PHASES[1])
+    engine = _group_engine(estimator.group_size, estimator.use_group_post_gibbs)
+    clock.lap(PHASES[1][0], engine)
+    fallback = _fallback_since(fallback)
 
     # Phase C (host): subset selection, then EM task matrices for every
     # (cluster, subset) in one threaded native call.
@@ -296,6 +321,8 @@ def batched_haplotype_transcripts(
     return {
         "phase_seconds": clock.seconds,
         "scored_clusters": len(meta),
+        "group_engine": engine,
+        **fallback,
         "em_tasks": len(all_tasks),
         "gibbs_jobs": gibbs_jobs,
     }
@@ -498,21 +525,23 @@ def batched_strains(
 
 
 def supports_batched_haplotypes(estimator) -> bool:
-    """``haplotypes`` inference at ploidy 2, with or without Gibbs."""
-    return isinstance(estimator, PathGroupPosteriorEstimator) and estimator.ploidy == 2
+    """``haplotypes`` inference at any ploidy, with or without Gibbs."""
+    return isinstance(estimator, PathGroupPosteriorEstimator)
 
 
 def batched_haplotypes(
     estimator, cluster_data, device: torch.device, rng_seed: int = 0, ranks=None
 ) -> Dict:
     """Batched ``haplotypes`` inference on ``device`` (``batched_
-    haplotypes`` of the JAX package at ploidy 2): dense diploid pair
-    scoring over every cluster, then selection on the host, or under
-    --use-hap-gibbs the collapsed Gibbs sampler keyed by each cluster's
-    first key.  Mutates the estimates in cluster_data in place; returns
-    ``phase_seconds`` (A, B, E) and ``scored_clusters``."""
+    haplotypes`` of the JAX package): under --use-hap-gibbs the collapsed
+    Gibbs sampler keyed by each cluster's first key; else at ploidy 2
+    dense diploid pair scoring over every cluster with selection on the
+    host, and at any other ploidy the full enumeration.  Mutates the
+    estimates in cluster_data in place; returns ``phase_seconds`` (A, B,
+    E), ``scored_clusters``, ``group_engine`` and the full enumeration's
+    host-engine clusters and seconds."""
     if not supports_batched_haplotypes(estimator):
-        raise NotImplementedError("only ploidy-2 haplotypes is ported")
+        raise NotImplementedError("only haplotypes is ported here")
     clock = _PhaseClock(device)
     rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
     inputs = []
@@ -526,16 +555,25 @@ def batched_haplotypes(
         meta.append(ci)
     clock.lap("A", "probability matrices")
 
+    fallback = dict(HOST_ENUMERATION)
     if estimator.use_hap_gibbs:
         keys = prng.first_keys(rng_seed, [rank_of(ci) for ci in meta])
         results = path_group_posteriors_gibbs_batched(inputs, estimator.ploidy, keys, device)
     else:
-        results = diploid_posteriors_batched(inputs, HAPLOTYPES_MIN_REL_LIKELIHOOD, device)
-    clock.lap("B", "diploid posteriors")
+        results = _group_posteriors_batched(
+            inputs, estimator.ploidy, HAPLOTYPES_MIN_REL_LIKELIHOOD, device
+        )
+    engine = _group_engine(estimator.ploidy, estimator.use_hap_gibbs)
+    clock.lap("B", engine)
 
-    for ci, (groups, posteriors) in zip(meta, results):
+    for ci, (groups, group_posteriors) in zip(meta, results):
         est = cluster_data[ci][0]
         est.path_group_sets = groups
-        est.posteriors = list(map(float, posteriors))
+        est.posteriors = list(map(float, group_posteriors))
     clock.lap("E", "posteriors")
-    return {"phase_seconds": clock.seconds, "scored_clusters": len(meta)}
+    return {
+        "phase_seconds": clock.seconds,
+        "scored_clusters": len(meta),
+        "group_engine": engine,
+        **_fallback_since(fallback),
+    }

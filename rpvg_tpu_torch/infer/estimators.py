@@ -9,8 +9,10 @@ originals): the batched model functions in
 strains cover tasks).  :class:`ClusterRNG` draws its keys from the
 port's own threefry (:mod:`rpvg_tpu_torch.prng`), bit-exact with
 ``jax.random``.  The two Gibbs samplers the copied ``estimate`` paths
-name run one cluster through the batched samplers on the CPU; the other
-per-cluster engines are not ported and raise ``NotImplementedError``.
+name run one cluster through the batched samplers on the CPU, and the
+full enumeration is the host engine of :mod:`rpvg_tpu_torch.infer.
+posteriors`; the other per-cluster engines are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from rpvg_tpu_torch.infer.matrices import (
     read_collapse,
 )
 from rpvg_tpu_torch.infer.mincover import weighted_minimum_path_cover
+from rpvg_tpu_torch.infer.posteriors import path_group_posteriors_full
 from rpvg_tpu_torch.probabilities import ReadPathProbs
 
 
@@ -46,7 +49,6 @@ def _not_ported(what: str, item: int):
 # inference never calls them.
 em_abundances = _not_ported("per-cluster EM", 14)
 path_group_posteriors_diploid = _not_ported("per-cluster diploid posteriors", 14)
-path_group_posteriors_full = _not_ported("full group enumeration", 10)
 
 
 def gibbs_read_count_samples(

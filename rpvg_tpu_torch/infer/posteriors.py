@@ -1,13 +1,20 @@
-"""Diploid haplotype-group posteriors (the ploidy-2 part of
+"""Haplotype-group posteriors at every ploidy (counterpart of
 ``rpvg_tpu/infer/posteriors.py``).
 
-Pair scoring runs as a plain torch op on the run's device: for a padded
-cluster batch, pair_ll[b, i, j] = sum_r counts[b, r] * log(noise[b, r] +
-(P[b, r, i] + P[b, r, j]) / 2) + lf[b, i] + lf[b, j], with -inf where
-the argument is <= 0.  In the JAX package this is XLA, not a Pallas
-kernel.  Selection (upper triangle, permutation prior, relative cutoff,
-normalisation) stays on the host, through the native
-``rpvg_diploid_select_ragged`` when the C++ library is loaded.
+* Ploidy 2: pair scoring runs as a plain torch op on the run's device:
+  for a padded cluster batch, pair_ll[b, i, j] = sum_r counts[b, r] *
+  log(noise[b, r] + (P[b, r, i] + P[b, r, j]) / 2) + lf[b, i] + lf[b, j],
+  with -inf where the argument is <= 0.  In the JAX package this is XLA,
+  not a Pallas kernel.  Selection (upper triangle, permutation prior,
+  relative cutoff, normalisation) stays on the host, through the native
+  ``rpvg_diploid_select_ragged`` when the C++ library is loaded.
+* Other ploidies: :func:`full_posteriors_batched` scores every multiset
+  of k paths (``ops/group_scores_cuda.py``: ``csrc/group_scores.cu`` on
+  the card, the plain version on the CPU); the group prior and the
+  normalisation stay on the host in float64.
+* ``--use-hap-gibbs``: :func:`path_group_posteriors_gibbs_batched`, the
+  pair-score sampler at k = 2 (``csrc/gibbs_posterior.cu``) and the
+  k-slot sampler at every other k (``csrc/gibbs_posterior_k.cu``).
 
 The mesh-sharded giant-cluster path and the host/device hybrid split of
 the JAX package are not ported (ROADMAP queue 1, item 15).
@@ -16,6 +23,8 @@ the JAX package are not ported (ROADMAP queue 1, item 15).
 from __future__ import annotations
 
 import math
+import time
+from itertools import combinations_with_replacement
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -30,10 +39,16 @@ from rpvg_tpu_torch.constants import (
     MIN_GIBBS_ITS,
 )
 from rpvg_tpu_torch.infer.matrices import calc_path_log_frequencies
+from rpvg_tpu_torch.mathutils import num_permutations
 
-# Clusters whose pair scores were computed, by device type, since the
-# last reset (a run can show where phase B ran).
+# Clusters whose pair or group scores were computed, by device type,
+# since the last reset (a run can show where phase B ran).  Clusters of
+# the full enumeration's host engine count under "cpu".
 SCORED_CLUSTERS: Dict[str, int] = {"cuda": 0, "cpu": 0}
+
+# Clusters whose enumeration exceeded _FULL_ENUM_GROUP_LIMIT and ran the
+# per-cluster host engine, and its seconds, since the last reset.
+HOST_ENUMERATION: Dict[str, float] = {"clusters": 0, "seconds": 0.0}
 
 # Memory guard: (R, P, P) tensors above this many elements score in
 # column blocks (the reference's giant-cluster branch-and-bound is the
@@ -341,6 +356,120 @@ def _native_diploid_select(score_matrices, min_rel_likelihood: float):
     return results
 
 
+# ---------------------------------------------- full group enumeration
+
+
+def path_group_posteriors_full(
+    probs: np.ndarray,
+    noise: np.ndarray,
+    counts: np.ndarray,
+    path_counts: Sequence[int],
+    group_size: int,
+) -> Tuple[List[List[int]], np.ndarray]:
+    """Posterior over every multiset of `group_size` paths, one cluster
+    on the host (the JAX package's function; its group-size-2 branch
+    scores the pairs on the CPU)."""
+    P = probs.shape[1]
+    log_freqs = calc_path_log_frequencies(path_counts)
+
+    if group_size == 1:
+        # Vectorised marginal case: (R, P) directly.
+        with np.errstate(divide="ignore"):
+            log_liks = counts @ np.log(noise[:, None] + probs)
+        log_liks = log_liks + log_freqs
+        groups = [[i] for i in range(P)]
+        return groups, _normalize_log_posteriors(log_liks)
+
+    if group_size == 2:
+        groups, log_liks = _diploid_log_likelihoods(
+            probs, noise, counts, log_freqs, torch.device("cpu")
+        )
+        return groups, _normalize_log_posteriors(log_liks)
+
+    groups = [list(c) for c in combinations_with_replacement(range(P), group_size)]
+    log_liks = np.empty(len(groups), dtype=np.float64)
+    for g, group in enumerate(groups):
+        group_probs = noise + probs[:, group].sum(axis=1) / group_size
+        with np.errstate(divide="ignore"):
+            ll = float(counts @ np.log(group_probs))
+        ll += float(log_freqs[list(group)].sum())
+        ll += math.log(num_permutations(group))
+        log_liks[g] = ll
+    return groups, _normalize_log_posteriors(log_liks)
+
+
+def _log_permutations_rows(groups: np.ndarray) -> np.ndarray:
+    """log permutation prior per row of sorted index tuples — the
+    reference's n! / (n - u + 1)! with u unique values (src/utils.hpp:
+    95-117, mirrored by mathutils.num_permutations), NOT the multinomial
+    coefficient.  Exact integer arithmetic so the float matches
+    math.log(num_permutations(group))."""
+    G, k = groups.shape
+    if k == 1:
+        return np.zeros(G, dtype=np.float64)
+    uniques = 1 + (groups[:, 1:] != groups[:, :-1]).sum(axis=1)
+    denom = np.array(
+        [math.factorial(k - u + 1) for u in range(1, k + 1)], dtype=np.int64
+    )
+    return np.log(math.factorial(k) // denom[uniques - 1])
+
+
+# Enumeration explodes combinatorially with ploidy; buckets whose padded
+# group count exceeds this fall back to the per-cluster host engine.
+_FULL_ENUM_GROUP_LIMIT = 1 << 17
+
+
+def full_posteriors_batched(cluster_inputs, group_size: int, device: torch.device):
+    """Exhaustive group-posterior enumeration over many clusters (the
+    ``haplotypes`` and ``haplotype-transcripts`` posteriors at group size
+    k != 2 without Gibbs): the log-likelihood of every multiset of k of a
+    cluster's P paths, in ``combinations_with_replacement(range(P), k)``
+    order, scored on ``device`` by :func:`rpvg_tpu_torch.ops.
+    group_scores_cuda.group_scores` (the CUDA kernel on ``cuda``, the
+    plain version in the JAX package's padded buckets on ``cpu``), then
+    the group prior and the normalisation on the host in float64.  A
+    cluster whose padded enumeration comb(P_pad + k - 1, k) exceeds
+    ``_FULL_ENUM_GROUP_LIMIT`` runs :func:`path_group_posteriors_full` on
+    the host instead (counted in ``HOST_ENUMERATION``).
+
+    cluster_inputs: per cluster (probs (R, P), noise (R,), counts (R,),
+    path_counts).  Returns per cluster (groups, posteriors)."""
+    from rpvg_tpu_torch.ops import group_scores_cuda
+
+    results = [None] * len(cluster_inputs)
+    scored = []
+    t0 = time.perf_counter()
+    for ci, (probs, noise, counts, path_counts) in enumerate(cluster_inputs):
+        P_pad = _ceil_pow2(probs.shape[1])
+        if math.comb(P_pad + group_size - 1, group_size) > _FULL_ENUM_GROUP_LIMIT:
+            results[ci] = path_group_posteriors_full(probs, noise, counts, path_counts, group_size)
+            HOST_ENUMERATION["clusters"] += 1
+            _count_scored(torch.device("cpu"), 1)
+        else:
+            scored.append(ci)
+    HOST_ENUMERATION["seconds"] += time.perf_counter() - t0
+    if not scored:
+        return results
+
+    clusters = group_scores_cuda.make_clusters(
+        [cluster_inputs[ci][:3] for ci in scored], group_size, device
+    )
+    scores = group_scores_cuda.group_scores(clusters).cpu().numpy()
+    _count_scored(device, len(scored))
+    out_offsets = clusters.host["out_offsets"]
+    for b, ci in enumerate(scored):
+        probs, _, _, path_counts = cluster_inputs[ci]
+        groups = group_scores_cuda.group_table(probs.shape[1], group_size)
+        log_freqs = calc_path_log_frequencies(path_counts)
+        ll = (
+            scores[out_offsets[b] : out_offsets[b + 1]]
+            + log_freqs[groups].sum(axis=1)
+            + _log_permutations_rows(groups)
+        )
+        results[ci] = (groups.tolist(), _normalize_log_posteriors(ll))
+    return results
+
+
 # ------------------------------------------------- posterior Gibbs
 
 
@@ -600,26 +729,61 @@ def posterior_gibbs_jobs(cluster_inputs, rng_keys, device: torch.device):
     )
 
 
+def posterior_gibbs_k_jobs(cluster_inputs, group_size: int, rng_keys, device: torch.device):
+    """The clusters' k-slot sampler inputs on ``device``
+    (:class:`~rpvg_tpu_torch.ops.posterior_gibbs_k_cuda.KSlotJobs`), sized
+    by :func:`gibbs_iteration_counts` and seeded from the keys."""
+    from rpvg_tpu_torch import prng
+    from rpvg_tpu_torch.ops import posterior_gibbs_k_cuda
+
+    return posterior_gibbs_k_cuda.make_jobs(
+        [(p, n, c, calc_path_log_frequencies(pc)) for p, n, c, pc in cluster_inputs],
+        group_size,
+        [gibbs_iteration_counts(group_size, item[0].shape[1]) for item in cluster_inputs],
+        [prng.key_seed(key) for key in rng_keys],
+        device,
+    )
+
+
+def _group_sample_posteriors(samples: np.ndarray, host, group_size: int):
+    """Per cluster (sorted unique groups, sample frequencies) of the
+    k-slot sampler's output (host int32, ``host["out_offsets"]``):
+    burn-in sliced off, each sample sorted, then counted, as the JAX
+    package's ``path_group_posteriors_gibbs_batched`` does."""
+    results = []
+    for b, (chains, burn, its) in enumerate(
+        zip(host["n_chains"], host["n_burn"], host["n_its"])
+    ):
+        lo, hi = host["out_offsets"][b], host["out_offsets"][b + 1]
+        kept = samples[lo:hi].reshape(chains, burn + its, group_size)[:, burn:, :]
+        kept = np.sort(kept, axis=2).reshape(-1, group_size)
+        unique, sample_counts = np.unique(kept, axis=0, return_counts=True)
+        groups = [list(map(int, row)) for row in unique]
+        results.append((groups, sample_counts / float(chains * its)))
+    return results
+
+
 def path_group_posteriors_gibbs_batched(cluster_inputs, group_size, rng_keys, device: torch.device):
     """Collapsed-Gibbs group posteriors of many clusters on ``device``
     (cluster_inputs: per cluster (probs (R, P), noise (R,), counts (R,),
     path_counts); one threefry key per cluster).  Returns per cluster
     (sorted unique groups, sample frequencies).
 
-    On ``cpu`` the native sampler runs (:func:`_posterior_gibbs_native`,
-    a verbatim copy: the JAX package's bytes), or without the library the
-    plain version; on ``cuda`` the pair scores are computed on the card
-    and sampled there by ``csrc/gibbs_posterior.cu``.  Only group size 2
-    is ported."""
-    from rpvg_tpu_torch.ops import posterior_gibbs_cuda
+    Group size 2: on ``cpu`` the native sampler runs
+    (:func:`_posterior_gibbs_native`, a verbatim copy: the JAX package's
+    bytes), or without the library the plain version; on ``cuda`` the
+    pair scores are computed on the card and sampled there by
+    ``csrc/gibbs_posterior.cu``.  Every other group size runs the k-slot
+    sampler: ``csrc/gibbs_posterior_k.cu`` on ``cuda``, its plain version
+    on ``cpu`` (the JAX package has no native sampler there)."""
+    from rpvg_tpu_torch.ops import posterior_gibbs_cuda, posterior_gibbs_k_cuda
 
-    if group_size != 2:
-        raise NotImplementedError(
-            f"posterior Gibbs sampling at group size {group_size} is not yet ported "
-            "(ROADMAP queue 1, item 10)"
-        )
     if not cluster_inputs:
         return []
+    if group_size != 2:
+        jobs = posterior_gibbs_k_jobs(cluster_inputs, group_size, rng_keys, device)
+        samples = posterior_gibbs_k_cuda.posterior_gibbs_k(jobs).cpu().numpy()
+        return _group_sample_posteriors(samples, jobs.host, group_size)
     if device.type == "cpu":
         native = _posterior_gibbs_native(cluster_inputs, rng_keys)
         if native is not None:

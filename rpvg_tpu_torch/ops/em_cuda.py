@@ -273,6 +273,18 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return tensor.pin_memory().to(device, non_blocking=True)
 
 
+def concat_to_device(arrays: Sequence[np.ndarray], device: torch.device) -> torch.Tensor:
+    """The arrays flattened and concatenated as one float64 tensor on
+    ``device`` (:func:`to_device`)."""
+    flat = [np.asarray(a, dtype=np.float64).reshape(-1) for a in arrays]
+    return to_device(np.concatenate(flat) if flat else np.zeros(0), device)
+
+
+def offsets(sizes) -> np.ndarray:
+    """(n + 1,) int64 running offsets of ``sizes``, from 0."""
+    return np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)]).astype(np.int64)
+
+
 def launch_task_ids(launches: Sequence[Launch], device: torch.device) -> torch.Tensor:
     """Every launch's task indices, concatenated in launch order, on
     ``device`` (one copy for all launches)."""

@@ -10,8 +10,8 @@ Only :func:`run_pipeline` and :func:`run_inference_phases` are
 rewritten: the device is passed down explicitly, and there is no
 backend probe, watchdog or ``jax.profiler`` hook.  All four inference
 models are ported, with read-count Gibbs sampling (``-n``),
-``haplotypes`` and ``haplotype-transcripts`` at ploidy 2 (the latter
-with collapsed groups), both with ``--use-hap-gibbs``;
+``haplotypes`` and ``haplotype-transcripts`` at every ploidy (the
+latter with collapsed groups), both with ``--use-hap-gibbs``;
 :func:`unported_reason` names the ROADMAP item of every other
 configuration.
 """
@@ -55,13 +55,6 @@ def unported_reason(config: "PipelineConfig", multiprocess: int = 0) -> Optional
     queue-1 item that ports it), or None for a ported configuration."""
     if config.ind_hap_inference:
         return "--ind-hap-inference is not yet ported (ROADMAP queue 1, item 14)"
-    if config.ploidy != 2 and config.inference_model in ("haplotypes", "haplotype-transcripts"):
-        if config.use_hap_gibbs:
-            return (
-                f"--use-hap-gibbs with -y/--ploidy {config.ploidy} is not yet ported "
-                "(ROADMAP queue 1, item 10)"
-            )
-        return f"-y/--ploidy {config.ploidy} is not yet ported (ROADMAP queue 1, item 10)"
     if multiprocess > 1:
         return "--multiprocess > 1 is not yet ported (ROADMAP queue 1, item 16)"
     return None

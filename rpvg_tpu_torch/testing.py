@@ -1,7 +1,7 @@
 """Seeded EM task sets shaped like the main path's phase D, read-count
-Gibbs jobs on them and diploid clusters for the posterior sampler, for
-holding the kernels against their plain versions (tests and
-``chip_smoke.py``).
+Gibbs jobs on them, clusters for the posterior samplers and for the full
+group enumeration, for holding the kernels against their plain versions
+(tests and ``chip_smoke.py``).
 
 Each task is a noise-normalised matrix (R, C) whose last column is the
 noise probability, with integral read counts (R,), as phase C emits
@@ -11,6 +11,7 @@ median 3, at most 348; columns: median 9, at most 61).
 
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import numpy as np
@@ -150,13 +151,55 @@ def posterior_cluster_set(n_clusters: int, seed: int, max_paths: int = 28) -> Li
     return clusters
 
 
-def posterior_wide_cluster(n_paths: int, seed: int) -> PosteriorCluster:
-    """One diploid cluster of 30 reads over ``n_paths`` paths, 30 % of its
-    probabilities nonzero: at 200 paths its (P, P) CDFs do not fit one
-    block's shared memory."""
+def posterior_wide_cluster(n_paths: int, seed: int, n_rows: int = 30) -> PosteriorCluster:
+    """One cluster of ``n_rows`` reads (30 by default) over ``n_paths``
+    paths, 30 % of its probabilities nonzero: at 200 paths its (P, P)
+    CDFs do not fit one block's shared memory, and at 200 paths and 150
+    rows neither do its probabilities for the k-slot sampler."""
     rng = np.random.default_rng(seed)
-    probs = rng.random((30, n_paths)) * (rng.random((30, n_paths)) < 0.3)
-    return probs, np.full(30, 0.01), np.ones(30), [1] * n_paths
+    probs = rng.random((n_rows, n_paths)) * (rng.random((n_rows, n_paths)) < 0.3)
+    return probs, np.full(n_rows, 0.01), np.ones(n_rows), [1] * n_paths
+
+
+def enumeration_max_paths(group_size: int, max_paths: int = 32) -> int:
+    """The most paths, up to ``max_paths``, whose padded enumeration
+    (paths to a power of two) ``full_posteriors_batched`` scores on the
+    device rather than on the host."""
+    from rpvg_tpu_torch.infer.posteriors import _FULL_ENUM_GROUP_LIMIT, _ceil_pow2
+
+    P = max_paths
+    while P > 1 and math.comb(_ceil_pow2(P) + group_size - 1, group_size) > _FULL_ENUM_GROUP_LIMIT:
+        P -= 1
+    return P
+
+
+def enumeration_cluster_set(n_clusters: int, seed: int, group_size: int,
+                            max_paths: int = 32, max_rows: int = 512) -> List[PosteriorCluster]:
+    """``n_clusters`` clusters for the full enumeration at ``group_size``,
+    with P up to :func:`enumeration_max_paths` (32 at group sizes 1-4, 16
+    at 5): the first of one path, the second of the most paths and
+    ``max_rows`` rows (its probabilities take several passes of one
+    block's shared memory), the third with a row of zero noise and zero
+    probabilities on most paths (groups scored -inf), the rest as
+    :func:`posterior_cluster_set` draws them."""
+    rng = np.random.default_rng(seed)
+    top = enumeration_max_paths(group_size, max_paths)
+    clusters = []
+    for i in range(n_clusters):
+        P = 1 if i == 0 else top if i == 1 else int(rng.integers(2, top + 1))
+        R = max_rows if i == 1 else int(np.clip(round(np.exp(rng.normal(np.log(20.0), 1.0))), 1, max_rows))
+        probs = rng.random((R, P)) * (rng.random((R, P)) < 0.5)
+        probs[np.arange(R), rng.integers(0, P, size=R)] += rng.random(R)
+        noise = rng.uniform(1e-4, 0.05, R)
+        if i == 2:
+            noise[0] = 0.0
+            probs[0] = 0.0
+            probs[0, 0] = 0.5
+        clusters.append(
+            (probs, noise, rng.geometric(0.4, size=R).astype(np.float64),
+             rng.integers(1, 4, size=P).tolist())
+        )
+    return clusters
 
 
 def gibbs_jobs_on(inputs: List[GibbsJob], device, samples, seed: int):

@@ -1,4 +1,4 @@
-"""The CUDA kernels (both EM kernels, both Gibbs samplers) against their
+"""The CUDA kernels (both EM kernels, the Gibbs samplers, the group scorer) against their
 plain PyTorch versions, and the models' device halves on the card.  Every test here needs a CUDA device: they are
 marked ``gpu`` and skip on a host without one.  The module imports no
 jax (the card's host has none), so on the card it runs without the
@@ -409,3 +409,142 @@ def test_gibbs_samplers_on_cuda_route(cuda):
     for groups, freqs in post:
         assert abs(float(np.sum(freqs)) - 1.0) < 1e-12
         assert all(a <= b for a, b in groups)
+
+
+# ------------------------------------------------ ploidy k != 2
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 5])
+def test_group_scores_kernel_matches_plain(cuda, k):
+    """Seeded clusters of 1-32 paths (16 at k = 5), one of 512 rows x 32
+    paths (its rows take three passes of shared memory) and one with
+    groups scored -inf: within rtol 1e-10 of the plain version, -inf
+    where it is -inf."""
+    from rpvg_tpu_torch.ops import group_scores_cuda
+    from rpvg_tpu_torch.testing import enumeration_cluster_set
+
+    clusters = enumeration_cluster_set(40, seed=60 + k, group_size=k)
+    packed = group_scores_cuda.make_clusters([c[:3] for c in clusters], k, cuda)
+    launches, n = group_scores_cuda.LAUNCHES, group_scores_cuda.CLUSTERS
+    kernel = group_scores_cuda.group_scores(packed)
+    torch.cuda.synchronize()
+    assert group_scores_cuda.LAUNCHES == launches + 1
+    assert group_scores_cuda.CLUSTERS == n + len(clusters)
+    plain = group_scores_cuda.group_scores_ragged_plain(packed)
+    kernel, plain = kernel.cpu().numpy(), plain.cpu().numpy()
+    assert np.array_equal(np.isneginf(kernel), np.isneginf(plain)) and np.isneginf(plain).any()
+    finite = np.isfinite(plain)
+    np.testing.assert_allclose(kernel[finite], plain[finite], rtol=1e-10, atol=0)
+
+
+def test_group_scores_kernel_unstaged_rows_and_large_group_size(cuda):
+    """A row of 7,000 paths does not fit the block's shared memory (read
+    from global memory); group size 9 reads its indices from the table."""
+    from rpvg_tpu_torch.ops import group_scores_cuda
+    from rpvg_tpu_torch.testing import enumeration_cluster_set
+
+    rng = np.random.default_rng(66)
+    wide = (rng.random((3, 7000)), rng.uniform(1e-4, 0.05, 3), np.array([1.0, 2.0, 3.0]))
+    small = enumeration_cluster_set(3, seed=67, group_size=1, max_paths=8, max_rows=20)
+    for k, inputs in ((1, [wide] + [c[:3] for c in small]), (9, [c[:3] for c in small])):
+        packed = group_scores_cuda.make_clusters(inputs, k, cuda)
+        plan = group_scores_cuda.plan_launches(packed.host["n_cols"])
+        if k == 1:
+            assert [lc.staged for lc in plan] == [True, False]
+        kernel = group_scores_cuda.group_scores(packed).cpu().numpy()
+        plain = group_scores_cuda.group_scores_ragged_plain(packed).cpu().numpy()
+        finite = np.isfinite(plain)
+        assert np.array_equal(np.isneginf(kernel), np.isneginf(plain))
+        np.testing.assert_allclose(kernel[finite], plain[finite], rtol=1e-10, atol=0)
+
+
+def _k_slot_clusters(k):
+    from rpvg_tpu_torch.testing import posterior_cluster_set, posterior_wide_cluster
+
+    return posterior_cluster_set(24, seed=70 + k, max_paths=120) + [
+        posterior_wide_cluster(200, 79, n_rows=150)
+    ]
+
+
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_posterior_gibbs_k_kernel_matches_plain(cuda, k):
+    """Clusters of 1-120 paths and one of 200 paths x 150 rows (past
+    shared memory): every sampled group equal to the plain version's, or
+    the cluster's posterior within total variation 0.05 of the plain
+    version's (a draw flips where a uniform falls within rounding of a
+    CDF boundary)."""
+    from rpvg_tpu_torch.ops import posterior_gibbs_k_cuda
+
+    clusters = _k_slot_clusters(k)
+    keys = list(prng.split(prng.prng_key(8), len(clusters)))
+    jobs = posteriors.posterior_gibbs_k_jobs(clusters, k, keys, cuda)
+    plan = jobs.launches
+    assert any(not lc.staged for lc in plan)
+    launches = posterior_gibbs_k_cuda.LAUNCHES
+    kernel = posterior_gibbs_k_cuda.posterior_gibbs_k(jobs)
+    torch.cuda.synchronize()
+    assert posterior_gibbs_k_cuda.LAUNCHES == launches + len(plan)
+    again = posterior_gibbs_k_cuda.posterior_gibbs_k(jobs)
+    assert torch.equal(kernel, again)
+    kernel = kernel.cpu().numpy()
+    plain = posterior_gibbs_k_cuda.posterior_gibbs_k_plain(jobs).cpu().numpy()
+    h = jobs.host
+    k_post = posteriors._group_sample_posteriors(kernel, h, k)
+    p_post = posteriors._group_sample_posteriors(plain, h, k)
+    diverged = 0
+    for b in range(len(clusters)):
+        lo, hi = h["out_offsets"][b], h["out_offsets"][b + 1]
+        if not np.array_equal(kernel[lo:hi], plain[lo:hi]):
+            diverged += 1
+            a = dict(zip(map(tuple, k_post[b][0]), k_post[b][1]))
+            z = dict(zip(map(tuple, p_post[b][0]), p_post[b][1]))
+            tv = 0.5 * sum(abs(a.get(g, 0.0) - z.get(g, 0.0)) for g in set(a) | set(z))
+            assert tv < 0.05, (b, tv)
+    assert diverged <= len(clusters) // 4
+
+
+@pytest.mark.parametrize("model", ["haplotypes", "haplotype-transcripts"])
+@pytest.mark.parametrize("gibbs", [False, True], ids=["enumeration", "hap-gibbs"])
+def test_ploidy_3_cli_on_cuda(cuda, model, gibbs, tmp_path):
+    """`-y 3` through the CLI on cuda: the new kernels' counters (and the
+    EM kernel's for haplotype-transcripts) move; without Gibbs the
+    outputs match --backend cpu within rtol 1e-6."""
+    import os
+
+    from rpvg_tpu_torch import cli, sim
+    from rpvg_tpu_torch.compare import compare_estimate_files
+    from rpvg_tpu_torch.ops import group_scores_cuda, posterior_gibbs_k_cuda
+
+    panel = sim.build_gene_panel(
+        num_genes=5, isoforms_per_gene=3, num_haplotypes=4,
+        exons_per_gene=5, exon_length=100, variant_sites=3, seed=61,
+    )
+    records, _ = sim.simulate_read_pairs(
+        panel, 1200, read_length=80, frag_mean=200, frag_sd=20, seed=63,
+        abundances=sim.gene_abundances(panel, seed=67), multipath_dag=True,
+    )
+    files = {n: str(tmp_path / n) for n in ("graph.json", "panel.json", "aln.json", "info.tsv")}
+    sim.write_alignment_json(records, files["aln.json"])
+    panel.write_graph_json(files["graph.json"])
+    panel.write_panel_json(files["panel.json"])
+    panel.write_info_tsv(files["info.tsv"])
+    counter = posterior_gibbs_k_cuda if gibbs else group_scores_cuda
+    before = counter.LAUNCHES, em_cuda.LAUNCHES
+    for backend in ("cuda", "cpu"):
+        argv = ["-g", files["graph.json"], "-p", files["panel.json"], "-a", files["aln.json"],
+                "-o", str(tmp_path / backend), "-i", model, "-y", "3", "-r", "5",
+                "--score-not-qual", "--backend", backend]
+        argv += ["-f", files["info.tsv"]] if model == "haplotype-transcripts" else []
+        argv += ["--use-hap-gibbs"] if gibbs else []
+        assert cli.main(argv) == 0
+    assert counter.LAUNCHES > before[0]
+    if model == "haplotype-transcripts":
+        assert em_cuda.LAUNCHES > before[1]
+    if not gibbs:
+        suffixes = (".txt", "_joint.txt") if model == "haplotype-transcripts" else (".txt",)
+        for suffix in suffixes:
+            report = compare_estimate_files(
+                os.path.join(tmp_path, "cuda" + suffix), os.path.join(tmp_path, "cpu" + suffix),
+                1e-6, 1e-6,
+            )
+            assert report["rows"] > 0

@@ -147,8 +147,18 @@ def test_dedup_pairs_reads_the_native_buffer_as_the_native_route_does(monkeypatc
 
 
 def test_other_group_sizes_name_item_10():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        posteriors.path_group_posteriors_gibbs_batched([], 3, [], CPU)
+    """Group sizes other than 2 (ROADMAP queue 1, item 10) run the k-slot
+    sampler: no clusters give no results, and a cluster at group size 3
+    takes the plain version on the CPU, not the pair-score samplers."""
+    assert posteriors.path_group_posteriors_gibbs_batched([], 3, [], CPU) == []
+    launches = posterior_gibbs_cuda.LAUNCHES
+    cluster = _edge_posterior()
+    (groups, freqs), = posteriors.path_group_posteriors_gibbs_batched(
+        [cluster], 3, [prng.prng_key(3)], CPU
+    )
+    assert posterior_gibbs_cuda.LAUNCHES == launches
+    assert all(len(g) == 3 and list(g) == sorted(g) for g in groups)
+    assert float(np.sum(freqs)) == pytest.approx(1.0)
 
 
 # ------------------------------------------------- the plain versions

@@ -175,6 +175,7 @@ VERBATIM = [
         "_normalize_log_posteriors", "_pair_tensor_limit", "_ceil_pow2",
         "_ceil_pow4", "_diploid_select", "_native_diploid_select",
         "gibbs_iteration_counts", "_native_pair_scores", "_posterior_gibbs_native",
+        "_log_permutations_rows",
     )
 ] + [
     (port_readcount_gibbs, ref_readcount_gibbs, name)
@@ -209,6 +210,7 @@ def test_verbatim_copy_has_not_drifted(port_mod, ref_mod, name):
 def test_verbatim_constants_match():
     assert port_pipeline.FRAGMENT_BATCH_SIZE == ref_pipeline.FRAGMENT_BATCH_SIZE
     assert port_posteriors._PAIR_TENSOR_ELEMENT_LIMIT == ref_posteriors._PAIR_TENSOR_ELEMENT_LIMIT
+    assert port_posteriors._FULL_ENUM_GROUP_LIMIT == ref_posteriors._FULL_ENUM_GROUP_LIMIT
 
 
 # ---------------------------------------------------- jax-free operation
@@ -286,13 +288,13 @@ def test_cuda_backend_without_cuda_fails(tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra,item",
     [
-        (("--use-hap-gibbs", "-y", "3"), 10),
-        (("-i", "haplotypes", "--use-hap-gibbs", "-y", "3"), 10),
-        (("-i", "haplotypes", "-y", "3"), 10),
+        (("--ind-hap-inference", "-y", "3"), 14),
+        (("--ind-hap-inference", "--use-hap-gibbs"), 14),
+        (("--multiprocess", "2", "-y", "3"), 16),
         (("--ind-hap-inference", "-n", "4"), 14),
-        (("-i", "haplotypes", "-y", "4"), 10),
+        (("--multiprocess", "3"), 16),
         (("--ind-hap-inference",), 14),
-        (("-y", "3"), 10),
+        (("-i", "haplotypes", "--multiprocess", "2"), 16),
         (("--multiprocess", "2"), 16),
     ],
 )

@@ -19,9 +19,11 @@ Phases (each prints at least one line; any failure exits non-zero):
    seeded task set shaped like the main path's phase D; its time beside
    its roofline bound, and its slowest task alone;
 3. the port's CLI with --backend cuda and --backend cpu for all four
-   models, and haplotypes -y 3 and haplotype-transcripts -f -y 3, on a
-   small gene panel: identical rows, numbers within rtol 1e-6 / atol
-   1e-6;
+   models, haplotypes -y 3 and haplotype-transcripts -f -y 3,
+   --ind-hap-inference at -y 2 and -y 3, --multiprocess 2, -b (whose
+   _probs.txt.gz must be byte-identical), quality-scored alignments
+   (without --score-not-qual) and --single-end, on small gene panels:
+   identical rows, numbers within rtol 1e-6 / atol 1e-6;
 4. the main path at bench scale (haplotype-transcripts, 100k read pairs
    over 1,286 genes x 7 isoforms x 4 haplotypes), with launch counters
    reset just before and read just after; the tasks phase D hands to
@@ -66,11 +68,23 @@ Phases (each prints at least one line; any failure exits non-zero):
    200 paths and at k = 1 and 4 on 17 of them (every group equal to the
    plain version's, or the
    cluster within total variation 0.05 of it; diverged clusters counted)
-   and on phase 10's --use-hap-gibbs clusters.
+   and on phase 10's --use-hap-gibbs clusters;
+13. (run inside the dataset's directory, after 10) haplotype-transcripts
+   -f --ind-hap-inference on phase 4's dataset, with the counters reset
+   just before and read just after: wall, pairs/s, phases I1-I3 and C-E,
+   EM tasks, peak memory; the tasks its phase D hands
+   em_cuda.em_fixed_point are captured, re-timed, held against the plain
+   version and their slowest task timed alone, as in phase 4;
+14. the main path with --multiprocess 4 through the CLI in a fresh
+   interpreter: its workers fork before any CUDA context exists (each
+   records the CUDA state it finds), its outputs are phase 4's bytes, and
+   its fragment pass (slowest worker's scan, merge) is printed beside
+   phase 4's.
 
 Phase 3 also runs the CPU tests' seven Gibbs configurations (-n 8 for
-every abundance model, --use-hap-gibbs for both haplotype models) and
---use-hap-gibbs at -y 3 for both haplotype models on both devices: -n
+every abundance model, --use-hap-gibbs for both haplotype models),
+--use-hap-gibbs at -y 3 for both haplotype models, and
+--ind-hap-inference with -n 8 and with --use-hap-gibbs on both devices: -n
 runs keep their point estimates within rtol 1e-6 and their _gibbs.txt.gz
 rows within 6 standard errors; --use-hap-gibbs posteriors are no further
 apart across devices (total variation per cluster) than two CPU runs
@@ -297,12 +311,17 @@ def phase_kernel(torch, device):
     }
 
 
-def phase_main_path_em(torch, device, captured):
-    """Phase 4, after the run: the ragged kernel on the tasks phase D
-    handed to em_cuda.em_fixed_point (captured by the script), re-timed
-    with CUDA events, held against its plain version, and its slowest task
-    alone."""
-    from rpvg_tpu_torch.infer.batching import fold_fractions
+def phase_main_path_em(torch, device, captured, phase=4, run="the run", plain_tasks=None):
+    """Phase 4 (and 13), after the run: the ragged kernel on the tasks
+    phase D handed to em_cuda.em_fixed_point (captured by the script),
+    re-timed with CUDA events, held against its plain version (timed),
+    and its slowest task alone.  With ``plain_tasks`` and more tasks than
+    that, the plain version (which steps each padded bucket in torch ops
+    and took 483 s on phase 13's 256,874 tasks) runs on a sample: every
+    k-th task, k the task count over ``plain_tasks`` rounded up, and the
+    candidates for the slowest task; the kernel is timed on the sample
+    too, for a like-for-like ``ms`` and ``plain_ms``."""
+    from rpvg_tpu_torch.infer.batching import fold_fractions, pack_ragged
     from rpvg_tpu_torch.ops import em_cuda
 
     if len(captured) != 1:
@@ -316,25 +335,49 @@ def phase_main_path_em(torch, device, captured):
     ]
     k_fracs, k_iters = em_cuda.em_fixed_point(tasks, max_its, tol)
     kernel_ms = cuda_ms(lambda: em_cuda.em_fixed_point(tasks, max_its, tol), reps=5)
-    p_fracs, p_iters = em_cuda.em_fixed_point_plain(tasks, max_its, tol)
-    max_abs, max_rel, n_bad = compare_em(
-        fold_fractions(k_fracs, tasks, task_list), fold_fractions(p_fracs, tasks, task_list)
-    )
     iters = k_iters.cpu().numpy()
-    off_by = int((iters != p_iters.cpu().numpy()).sum())
     bound_ms, bound_by = ragged_bound(tasks, k_iters)
     slow, alone_ms = slowest_task(device, task_list, iters, max_its, tol)
+    result = {"ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "slowest_task_ms": alone_ms, "tasks": len(task_list)}
+    held, held_list, held_fracs, held_iters = tasks, task_list, k_fracs, k_iters
+    sampled = ""
+    if plain_tasks is not None and len(task_list) > plain_tasks:
+        step = -(-len(task_list) // plain_tasks)
+        picked = sorted(set(range(0, len(task_list), step))
+                        | set(slowest_candidates(task_list, iters)))
+        held_list = [task_list[i] for i in picked]
+        held = pack_ragged(held_list, device)
+        held_fracs, held_iters = em_cuda.em_fixed_point(held, max_its, tol)
+        result["ms"] = cuda_ms(lambda: em_cuda.em_fixed_point(held, max_its, tol), reps=5)
+        result["bound_ms"], result["bound_by"] = ragged_bound(held, held_iters)
+        result.update(all_tasks_ms=kernel_ms, all_tasks_bound_ms=bound_ms,
+                      all_tasks_bound_by=bound_by, sample_tasks=len(held_list))
+        sampled = (
+            f"; plain version on a sample of {len(held_list)} tasks (every {step}th and the "
+            f"slowest candidates): kernel {result['ms']:.3f} ms, bound "
+            f"{result['bound_ms']:.4f} ms ({result['bound_by']}) on it"
+        )
+    (p_fracs, p_iters), plain_ms = timed_once(
+        lambda: em_cuda.em_fixed_point_plain(held, max_its, tol)
+    )
+    max_abs, max_rel, n_bad = compare_em(
+        fold_fractions(held_fracs, held, held_list), fold_fractions(p_fracs, held, held_list)
+    )
+    off_by = int((held_iters.cpu().numpy() != p_iters.cpu().numpy()).sum())
+    result.update(plain_ms=plain_ms, max_abs_err=max_abs)
     log(
-        f"phase 4: the run's phase-D tasks ({len(task_list)} tasks, max_em_its {max_its}) "
-        f"re-timed: ragged kernel {kernel_ms:.3f} ms (CUDA events), bound {bound_ms:.4f} ms "
-        f"({bound_by}); slowest task {task_list[slow][0].shape} at {int(iters[slow])} "
-        f"iterations alone {alone_ms:.3f} ms; vs plain max abs {max_abs:.3e} max rel "
-        f"{max_rel:.3e}, {n_bad} out of tolerance, {off_by} tasks with another iteration count"
+        f"phase {phase}: {run}'s phase-D tasks ({len(task_list)} tasks, "
+        f"{int(tasks.probs.numel())} elements, max_em_its {max_its}) re-timed: ragged kernel "
+        f"{kernel_ms:.3f} ms (CUDA events), bound {bound_ms:.4f} ms ({bound_by}); slowest "
+        f"task {task_list[slow][0].shape} at {int(iters[slow])} iterations alone "
+        f"{alone_ms:.3f} ms{sampled}; plain {plain_ms:.1f} ms (one run); vs plain max abs "
+        f"{max_abs:.3e} max rel {max_rel:.3e}, {n_bad} out of tolerance (rtol {RTOL}, atol "
+        f"{ATOL_EM}), {off_by} tasks with another iteration count"
     )
     if n_bad:
-        raise AssertionError("EM kernel disagrees with plain version on the main path's tasks")
-    return {"ms": kernel_ms, "bound_ms": bound_ms, "slowest_task_ms": alone_ms,
-            "max_abs_err": max_abs}
+        raise AssertionError(f"EM kernel disagrees with plain version on {run}'s tasks")
+    return result
 
 
 def phase_fused_kernel(torch, device, ragged_ms):
@@ -1165,6 +1208,10 @@ GIBBS_CONFIGS = (
      False),
     ("haplotype-transcripts -y 3 --use-hap-gibbs", "haplotype-transcripts", True,
      ("-y", "3", "--use-hap-gibbs"), False),
+    ("haplotype-transcripts --ind-hap-inference -n 8", "haplotype-transcripts", True,
+     ("--ind-hap-inference", "-n", "8"), True),
+    ("haplotype-transcripts --ind-hap-inference --use-hap-gibbs", "haplotype-transcripts", True,
+     ("--ind-hap-inference", "--use-hap-gibbs"), False),
 )
 
 
@@ -1249,20 +1296,84 @@ def phase_gibbs_cli(cli, compare, small, work, threads):
         log(f"phase 3: {label}, 5000 pairs, --backend cuda vs cpu: " + "; ".join(parts))
 
 
-def write_dataset(sim, rpa, alignments, out_dir, num_genes, num_pairs, seed_panel, seed_reads):
+CLI_CONFIGS = (
+    # (label, model, dataset, extra flags, quality-scored)
+    ("haplotype-transcripts", "haplotype-transcripts", "small", (), False),
+    ("transcripts", "transcripts", "small", (), False),
+    ("strains", "strains", "small", (), False),
+    ("haplotypes", "haplotypes", "small", (), False),
+    ("haplotypes -y 3", "haplotypes", "small", ("-y", "3"), False),
+    ("haplotype-transcripts -y 3", "haplotype-transcripts", "small", ("-y", "3"), False),
+    ("haplotype-transcripts --ind-hap-inference", "haplotype-transcripts", "small",
+     ("--ind-hap-inference",), False),
+    ("haplotype-transcripts --ind-hap-inference -y 3", "haplotype-transcripts", "small",
+     ("--ind-hap-inference", "-y", "3"), False),
+    ("haplotype-transcripts --multiprocess 2", "haplotype-transcripts", "small",
+     ("--multiprocess", "2"), False),
+    ("haplotype-transcripts -b", "haplotype-transcripts", "small", ("-b",), False),
+    ("transcripts -b", "transcripts", "small", ("-b",), False),
+    ("haplotype-transcripts, quality-scored", "haplotype-transcripts", "qual", (), True),
+    ("transcripts, quality-scored", "transcripts", "qual", (), True),
+    ("haplotype-transcripts --single-end", "haplotype-transcripts", "single_end",
+     ("--single-end", "-m", "250", "-d", "25"), False),
+    ("transcripts --single-end", "transcripts", "single_end",
+     ("--single-end", "-m", "250", "-d", "25"), False),
+)
+
+
+def phase_cli_configs(cli, compare_estimate_files, datasets, work, threads):
+    """Phase 3, point estimates: each configuration of CLI_CONFIGS with
+    --backend cuda and cpu on its 5k-read dataset: identical rows,
+    numbers within rtol 1e-6 / atol 1e-6; with -b the _probs.txt.gz of
+    both devices identical (host code)."""
+    import gzip
+
+    for label, model, dataset, extra, qual in CLI_CONFIGS:
+        info = model == "haplotype-transcripts"
+        name = "small_" + "".join(c if c.isalnum() else "_" for c in label)
+        for backend in ("cuda", "cpu"):
+            prefix = os.path.join(work, f"{name}_{backend}")
+            argv = cli_argv(datasets[dataset], prefix, backend, threads, model, info, qual)
+            if cli.main(argv + list(extra)) != 0:
+                raise RuntimeError(f"{label} CLI --backend {backend} exited non-zero")
+        reports = []
+        for suffix in output_suffixes(model):
+            rep = compare_estimate_files(
+                os.path.join(work, f"{name}_cuda{suffix}"),
+                os.path.join(work, f"{name}_cpu{suffix}"), RTOL, ATOL_OUT,
+            )
+            reports.append(f"{suffix} {rep['rows']} rows, max abs {rep['max_abs_diff']:.3e}, "
+                           f"max rel {rep['max_rel_diff']:.3e}, byte-identical "
+                           f"{rep['byte_identical']}")
+        if "-b" in extra:
+            probs = []
+            for backend in ("cuda", "cpu"):
+                with gzip.open(os.path.join(work, f"{name}_{backend}_probs.txt.gz"), "rb") as handle:
+                    probs.append(handle.read())
+            if probs[0] != probs[1] or not probs[0]:
+                raise AssertionError(f"{label}: _probs.txt.gz differs across devices")
+            reports.append(f"_probs.txt.gz {probs[0].count(b'#')} blocks, byte-identical")
+        log(f"phase 3: {label}, 5000 {'reads' if dataset == 'single_end' else 'pairs'}, "
+            f"--backend cuda vs cpu: rows identical; " + "; ".join(reports))
+
+
+def write_dataset(sim, rpa, alignments, out_dir, num_genes, num_pairs, seed_panel, seed_reads,
+                  with_errors=False, tag=""):
     """Gene panel (graph/panel JSON, info TSV) and paired multipath reads
-    as a binary .rpa stream, made from seeds."""
+    as a binary .rpa stream, made from seeds; ``with_errors`` gives the
+    reads sequencing errors and base qualities (for quality-scored
+    runs).  File names carry ``tag``."""
     panel = sim.build_gene_panel(
         num_genes=num_genes, isoforms_per_gene=7, num_haplotypes=4,
         exons_per_gene=10, exon_length=120, variant_sites=3, seed=seed_panel,
     )
     records, _ = sim.simulate_read_pairs(
         panel, num_pairs, read_length=100, frag_mean=250, frag_sd=25, seed=seed_reads,
-        abundances=sim.gene_abundances(panel, seed=7), with_errors=False,
+        abundances=sim.gene_abundances(panel, seed=7), with_errors=with_errors,
         multipath_dag=True,
     )
     parsed = [alignments.parse_multipath_alignment(r) for r in records]
-    paths = {name: os.path.join(out_dir, name) for name in
+    paths = {name: os.path.join(out_dir, tag + name) for name in
              ("graph.json", "panel.json", "info.tsv", "aln.rpa")}
     rpa.write_fragments(
         paths["aln.rpa"], list(zip(parsed[0::2], parsed[1::2])),
@@ -1274,12 +1385,35 @@ def write_dataset(sim, rpa, alignments, out_dir, num_genes, num_pairs, seed_pane
     return paths
 
 
-def cli_argv(paths, prefix, backend, threads, model="haplotype-transcripts", info=True):
+def write_single_end_dataset(sim, out_dir, num_genes, num_reads, seed_panel, seed_reads):
+    """write_dataset's gene panel with single-end multipath reads (JSON
+    lines), for --single-end runs."""
+    panel = sim.build_gene_panel(
+        num_genes=num_genes, isoforms_per_gene=7, num_haplotypes=4,
+        exons_per_gene=10, exon_length=120, variant_sites=3, seed=seed_panel,
+    )
+    records, _ = sim.simulate_single_reads(
+        panel, num_reads, read_length=100, abundances=sim.gene_abundances(panel, seed=7),
+        seed=seed_reads,
+    )
+    paths = {name: os.path.join(out_dir, "se_" + name) for name in
+             ("graph.json", "panel.json", "info.tsv")}
+    # Under cli_argv's key for the alignments; the file is JSON lines.
+    paths["aln.rpa"] = os.path.join(out_dir, "se_aln.json")
+    sim.write_alignment_json(records, paths["aln.rpa"])
+    panel.write_graph_json(paths["graph.json"])
+    panel.write_panel_json(paths["panel.json"])
+    panel.write_info_tsv(paths["info.tsv"])
+    return paths
+
+
+def cli_argv(paths, prefix, backend, threads, model="haplotype-transcripts", info=True,
+             qual=False):
     argv = [
         "-g", paths["graph.json"], "-p", paths["panel.json"], "-a", paths["aln.rpa"],
         "-o", prefix, "-i", model,
-        "--backend", backend, "-t", str(threads), "-r", "42", "--score-not-qual",
-    ]
+        "--backend", backend, "-t", str(threads), "-r", "42",
+    ] + ([] if qual else ["--score-not-qual"])
     return argv + (["-f", paths["info.tsv"]] if info else [])
 
 
@@ -1332,7 +1466,9 @@ def read_counters():
 def check_routes(model, fused, stats, counts, hap_gibbs=False, ploidy=2):
     """The run's device work went through the kernels and the cuda
     scorers: every EM task in the route's kernel, none in the other; every
-    Gibbs job and (with --use-hap-gibbs) every cluster of phase B in its
+    Gibbs job and (with --use-hap-gibbs) every cluster of phase B (with
+    --ind-hap-inference every (cluster, transcript group) job of phase
+    I2, which the run counts as its scored clusters) in its
     sampler kernel (the pair-score sampler at ploidy 2, the k-slot sampler
     otherwise); without it at ploidy != 2 every cluster of phase B in the
     group-score kernel but those over the enumeration limit, which the
@@ -1514,6 +1650,125 @@ def phase_full_width_ploidy(torch, device, cli, check_estimate_file, bench, work
     )
 
 
+def phase_independent(torch, device, cli, check_estimate_file, bench, work, threads):
+    """Phase 13: haplotype-transcripts -f --ind-hap-inference on phase 4's
+    dataset with the counters reset just before and read just after (the
+    EM tasks all through the ragged kernel, phase I2's jobs through the
+    pair scorer on cuda); the tasks phase D hands em_cuda.em_fixed_point
+    are captured, then re-timed and held against the plain version as in
+    phase 4.  Returns (stats, counters, the EM result on the tasks)."""
+    from rpvg_tpu_torch.ops import em_cuda
+
+    captured = []
+    launch = em_cuda.em_fixed_point
+
+    def capture(tasks, max_em_its, max_rel_em_conv):
+        captured.append((tasks, max_em_its, max_rel_em_conv))
+        return launch(tasks, max_em_its, max_rel_em_conv)
+
+    em_cuda.em_fixed_point = capture
+    try:
+        stats, counts = bench_run(torch, device, cli, check_estimate_file, 13, bench,
+                                  os.path.join(work, "independent"), threads,
+                                  "haplotype-transcripts", True, extra=("--ind-hap-inference",))
+    finally:
+        em_cuda.em_fixed_point = launch
+    phases = stats["phase_seconds"]
+    log(
+        f"phase 13: --ind-hap-inference: I1 group matrices {phases['I1']:.3f}s, I2 group "
+        f"posteriors ({stats['group_engine']}, {stats['scored_clusters']} (cluster, transcript "
+        f"group) jobs, {counts['scored_cuda']} scored on cuda) {phases['I2']:.3f}s, I3 subset "
+        f"sampling {phases['I3']:.3f}s, C task fill {phases['C']:.3f}s, D {phases['D']:.3f}s "
+        f"on {stats['em_tasks']} EM tasks ({counts['ragged_tasks']} through the ragged kernel "
+        f"in {counts['ragged_launches']} launches), E {phases['E']:.3f}s"
+    )
+    em = phase_main_path_em(torch, device, captured, phase=13, run="the --ind-hap-inference run",
+                            plain_tasks=1024)
+    return stats, counts, em
+
+
+# Runs the CLI in a fresh interpreter (so its workers fork before any
+# CUDA context exists), each worker recording the CUDA state it finds,
+# with chip_smoke's counters reset just before and read just after.
+MP_PROBE = r"""
+import json, os, sys
+import torch
+import chip_smoke
+from rpvg_tpu_torch import cli
+from rpvg_tpu_torch.parallel import multihost
+
+out_dir, argv = sys.argv[1], sys.argv[2:]
+shard_worker = multihost._shard_worker
+
+def recording_worker(args):
+    with open(os.path.join(out_dir, f"mp_worker_{os.getpid()}.json"), "w") as handle:
+        json.dump({"initialized": torch.cuda.is_initialized(),
+                   "bad_fork": torch.cuda._is_in_bad_fork()}, handle)
+    return shard_worker(args)
+
+multihost._shard_worker = recording_worker
+chip_smoke.reset_counters()
+rc, stats = cli.run_cli(argv)
+counts = chip_smoke.read_counters()
+keep = ("phase_seconds", "em_tasks", "scored_clusters", "enumeration_fallback_clusters",
+        "gibbs_jobs", "num_clusters", "fragment_pass_seconds", "fragment_scan_s", "merge_s",
+        "matrix_seconds", "output_seconds", "wall_seconds")
+print(json.dumps({"rc": rc, "stats": {k: stats[k] for k in keep} if stats else None,
+                  "counts": counts, "peak_mib": torch.cuda.max_memory_allocated() / 2**20}))
+"""
+
+
+def phase_multiprocess(bench, work, threads, main_stats, main_prefix, workers=4):
+    """Phase 14: the main path with --multiprocess 4 through the CLI in a
+    fresh interpreter: every worker found no CUDA state, the device work
+    went through the kernels, and the outputs are phase 4's bytes.
+    Prints the fragment pass (the slowest worker's scan and the merge)
+    beside phase 4's single-process pass."""
+    import glob
+    import json
+
+    prefix = os.path.join(work, "multiprocess")
+    argv = cli_argv(bench, prefix, "cuda", threads) + ["--multiprocess", str(workers)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", MP_PROBE, work, *argv], capture_output=True, text=True,
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"--multiprocess {workers} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    stats, counts = result["stats"], result["counts"]
+    if result["rc"] != 0:
+        raise RuntimeError(f"--multiprocess {workers} CLI exited {result['rc']}")
+    found = [json.load(open(path)) for path in glob.glob(os.path.join(work, "mp_worker_*.json"))]
+    if len(found) != workers or any(f != {"initialized": False, "bad_fork": False} for f in found):
+        raise AssertionError(f"--multiprocess workers found CUDA state: {found}")
+    check_routes("haplotype-transcripts", False, stats, counts)
+    same = []
+    for suffix in output_suffixes("haplotype-transcripts"):
+        with open(prefix + suffix, "rb") as a, open(main_prefix + suffix, "rb") as b:
+            same.append(a.read() == b.read())
+    if not all(same):
+        raise AssertionError(f"--multiprocess {workers} outputs differ from phase 4's")
+    phases = ", ".join(f"{k} {v:.3f}s" for k, v in stats["phase_seconds"].items())
+    log(
+        f"phase 14: haplotype-transcripts -f --multiprocess {workers}: {PAIRS} pairs on cuda in "
+        f"{stats['wall_seconds']:.2f}s inside the CLI = {PAIRS / stats['wall_seconds']:.1f} read "
+        f"pairs/s ({wall:.2f}s with the interpreter's start); fragment pass "
+        f"{stats['fragment_pass_seconds']:.2f}s (slowest worker's scan "
+        f"{stats['fragment_scan_s']:.2f}s, merge {stats['merge_s']:.3f}s) against phase 4's "
+        f"single-process {main_stats['fragment_pass_seconds']:.2f}s; matrices "
+        f"{stats['matrix_seconds']:.2f}s, phases {phases}, outputs "
+        f"{stats['output_seconds']:.2f}s; {stats['em_tasks']} EM tasks through the ragged kernel "
+        f"in {counts['ragged_launches']} launches; {workers} workers forked with no CUDA state "
+        f"(not initialised, not a bad fork); .txt and _joint.txt byte-identical to phase 4's; "
+        f"max_memory_allocated {result['peak_mib']:.1f} MiB"
+    )
+    return stats, counts
+
+
 def main() -> int:
     import torch
 
@@ -1576,31 +1831,18 @@ def main() -> int:
 
     threads = min(8, os.cpu_count() or 1)
     with tempfile.TemporaryDirectory(prefix="rpvg_smoke_") as work:
-        # Phase 3: every model agrees with itself across devices.
+        # Phase 3: every model and configuration agrees with itself across
+        # devices.
         small = write_dataset(sim, rpa, alignments, work,
                               num_genes=60, num_pairs=5000, seed_panel=23, seed_reads=29)
-        for model, extra in (
-            ("haplotype-transcripts", ()), ("transcripts", ()), ("strains", ()),
-            ("haplotypes", ()), ("haplotypes", ("-y", "3")), ("haplotype-transcripts", ("-y", "3")),
-        ):
-            info = model == "haplotype-transcripts"
-            name = f"small_{model}{'_y3' if extra else ''}"
-            reports = []
-            for backend in ("cuda", "cpu"):
-                prefix = os.path.join(work, f"{name}_{backend}")
-                rc = cli.main(cli_argv(small, prefix, backend, threads, model, info) + list(extra))
-                if rc != 0:
-                    raise RuntimeError(f"{model} {' '.join(extra)} CLI --backend {backend} exited {rc}")
-            for suffix in output_suffixes(model):
-                rep = compare_estimate_files(
-                    os.path.join(work, f"{name}_cuda{suffix}"),
-                    os.path.join(work, f"{name}_cpu{suffix}"), RTOL, ATOL_OUT,
-                )
-                reports.append(f"{suffix} {rep['rows']} rows, max abs {rep['max_abs_diff']:.3e}, "
-                               f"max rel {rep['max_rel_diff']:.3e}, byte-identical "
-                               f"{rep['byte_identical']}")
-            log(f"phase 3: {model}{' ' + ' '.join(extra) if extra else ''}, 5000 pairs, "
-                f"--backend cuda vs cpu: rows identical; " + "; ".join(reports))
+        datasets = {
+            "small": small,
+            "qual": write_dataset(sim, rpa, alignments, work, num_genes=60, num_pairs=5000,
+                                  seed_panel=23, seed_reads=31, with_errors=True, tag="qual_"),
+            "single_end": write_single_end_dataset(sim, work, num_genes=60, num_reads=5000,
+                                                   seed_panel=23, seed_reads=37),
+        }
+        phase_cli_configs(cli, compare_estimate_files, datasets, work, threads)
         phase_gibbs_cli(cli, compare, small, work, threads)
 
         # Phase 4: the main path at bench scale.
@@ -1619,9 +1861,9 @@ def main() -> int:
 
         em_cuda.em_fixed_point = capture
         try:
-            _, counts = bench_run(torch, device, cli, check_estimate_file, 4, bench,
-                                  os.path.join(work, "bench"), threads,
-                                  "haplotype-transcripts", info=True)
+            main_stats, counts = bench_run(torch, device, cli, check_estimate_file, 4, bench,
+                                           os.path.join(work, "bench"), threads,
+                                           "haplotype-transcripts", info=True)
         finally:
             em_cuda.em_fixed_point = launch
         ragged_launches = main_path_launches = counts["ragged_launches"]
@@ -1720,6 +1962,13 @@ def main() -> int:
             torch, device, cli, check_estimate_file, bench, work, threads
         )
 
+        # Phase 13: --ind-hap-inference at full width; phase 14: the main
+        # path with --multiprocess 4.
+        _, ind_counts, ind_em = phase_independent(
+            torch, device, cli, check_estimate_file, bench, work, threads
+        )
+        phase_multiprocess(bench, work, threads, main_stats, os.path.join(work, "bench"))
+
     # Phases 7 and 8: the two Gibbs samplers; 11 and 12: the ploidy-k kernels.
     gibbs = phase_gibbs_kernel(torch, device, gibbs_captured)
     posterior = phase_posterior_kernel(torch, device, posterior_captured)
@@ -1746,6 +1995,25 @@ def main() -> int:
             "main_path_tasks_ms": main_em["ms"],
             "main_path_tasks_bound_ms": main_em["bound_ms"],
             "main_path_slowest_task_ms": main_em["slowest_task_ms"],
+        },
+        {
+            "name": em_cuda.KERNEL_NAME,
+            "route": "cuda",
+            "source": "rpvg_tpu_torch/csrc/em_fixed_point.cu",
+            "replaces": "rpvg_tpu/ops/em_pallas.py:46",
+            "launches": ind_counts["ragged_launches"],
+            "max_abs_err": ind_em["max_abs_err"],
+            "ms": ind_em["ms"],
+            "plain_ms": ind_em["plain_ms"],
+            "bound_ms": ind_em["bound_ms"],
+            "bound_by": ind_em["bound_by"],
+            "library_ms": None,
+            "main_path_run": "haplotype-transcripts -f --ind-hap-inference",
+            "tasks": ind_em["tasks"],
+            "sample_tasks": ind_em.get("sample_tasks"),
+            "all_tasks_ms": ind_em.get("all_tasks_ms"),
+            "all_tasks_bound_ms": ind_em.get("all_tasks_bound_ms"),
+            "slowest_task_ms": ind_em["slowest_task_ms"],
         },
         {
             "name": em_fused_cuda.KERNEL_NAME,

@@ -3,8 +3,9 @@ with the JAX package's option surface.
 
 ``--backend`` names the device of the inference phases: ``cuda`` (the
 default) or ``cpu``.  ``cuda`` without a CUDA device is an error; there is
-no fallback.  Configurations not ported yet exit with rc 1 and a one-line
-``ERROR: ... not yet ported (ROADMAP queue 1, item N)``.
+no fallback.  ``--multiprocess N`` (N > 1) runs the fragment pass in N
+worker processes, forked before this process touches CUDA (the workers
+run host code only); the device is checked after the fork.
 
     python -m rpvg_tpu_torch.cli -g graph.json -p panel.json -a aln.json \\
         -o out -i haplotype-transcripts -f info.tsv --backend cuda
@@ -16,7 +17,7 @@ import argparse
 import sys
 from typing import Dict, List, Optional, Tuple
 
-from rpvg_tpu_torch.pipeline import PipelineConfig, PipelineInputError, run_pipeline, unported_reason
+from rpvg_tpu_torch.pipeline import PipelineConfig, PipelineInputError, run_pipeline
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=0,
         metavar="N",
-        help="run the fragment pass across N worker processes (not yet ported)",
+        help="run the fragment pass across N worker processes",
     )
     general.add_argument(
         "--backend",
@@ -161,15 +162,16 @@ def run_cli(argv: Optional[List[str]] = None) -> Tuple[int, Optional[Dict]]:
         max_rel_em_conv=args.max_rel_em_conv,
         gibbs_thin_its=args.gibbs_thin_its,
     )
-    reason = unported_reason(config, args.multiprocess)
-    if reason is not None:
-        print(f"ERROR: {reason}", file=sys.stderr)
-        return 1, None
-
     from rpvg_tpu_torch.device import DeviceUnavailableError, resolve_device
 
+    import torch
+
+    multiprocess = args.multiprocess > 1
     try:
-        device = resolve_device(args.backend)
+        # With --multiprocess the workers fork before this process touches
+        # CUDA at all: run_pipeline_multiprocess checks the device after
+        # the fork.
+        device = torch.device(args.backend) if multiprocess else resolve_device(args.backend)
     except DeviceUnavailableError as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
         return 1, None
@@ -179,8 +181,13 @@ def run_cli(argv: Optional[List[str]] = None) -> Tuple[int, Optional[Dict]]:
     print(f"Running rpvg_tpu_torch ({__version__}) on {device}", file=sys.stderr)
     print(f"Random number generator seed: {rng_seed}", file=sys.stderr)
     try:
-        stats = run_pipeline(config, device)
-    except PipelineInputError as exc:
+        if multiprocess:
+            from rpvg_tpu_torch.parallel.multihost import run_pipeline_multiprocess
+
+            stats = run_pipeline_multiprocess(config, args.multiprocess, device)
+        else:
+            stats = run_pipeline(config, device)
+    except (PipelineInputError, DeviceUnavailableError) as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
         return 1, None
     return 0, stats

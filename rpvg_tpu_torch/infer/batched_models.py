@@ -17,6 +17,12 @@ with read-count Gibbs sampling (``-n``):
   allocates samples to, on the task matrices phase D packed;
 * E (host): posterior-weighted combination per cluster.
 
+With independent transcript groups (``--ind-hap-inference``),
+``batched_haplotype_transcripts_independent`` replaces A-C by I1 (one
+matrix per (cluster, transcript group) job), I2 (every job's group
+posteriors on the device), I3 (subset sampling on the host) and C (the
+task matrices), then runs the same D, D2 and E.
+
 The other models run a subset of the same phases:
 
 * ``transcripts``: A (noise-normalised matrices), D, D2, E (abundances);
@@ -35,6 +41,7 @@ first.
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 import time
@@ -101,10 +108,11 @@ def _flat_group_spec(groups: List[List[int]]) -> Tuple[np.ndarray, int]:
 
 
 def supports_batched_nested(estimator) -> bool:
-    """Collapsed-group nested inference at any ploidy, with or without
-    Gibbs sampling: the configurations batched_haplotype_transcripts
-    runs."""
-    return isinstance(estimator, NestedPathAbundanceEstimator) and estimator.infer_collapsed
+    """``haplotype-transcripts`` at any ploidy, with or without Gibbs
+    sampling: collapsed groups (:func:`batched_haplotype_transcripts`)
+    or independent transcript groups
+    (:func:`batched_haplotype_transcripts_independent`)."""
+    return isinstance(estimator, NestedPathAbundanceEstimator)
 
 
 def _group_posteriors_batched(inputs, group_size: int, min_rel_likelihood: float, device):
@@ -167,8 +175,8 @@ def batched_haplotype_transcripts(
     (``enumeration_fallback_clusters``, ``_seconds``), the number of EM
     tasks in phase D (``em_tasks``) and of Gibbs jobs in phase D2
     (``gibbs_jobs``)."""
-    if not supports_batched_nested(estimator):
-        raise NotImplementedError("only collapsed haplotype-transcripts is ported")
+    if not (supports_batched_nested(estimator) and estimator.infer_collapsed):
+        raise NotImplementedError("collapsed groups only (not --ind-hap-inference)")
     clock = _PhaseClock(device)
     rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
     # Object writers only: the native output composer reads columnar
@@ -290,34 +298,13 @@ def batched_haplotype_transcripts(
                 )
     clock.lap(*PHASES[2])
 
-    # Phase D (device): one EM run over every subset task.
-    em_inputs = [(task["matrix"], task["counts"]) for _, task in all_tasks]
-    em_results, packed = run_batched_em_packed(
-        em_inputs, estimator.max_em_its, estimator.max_rel_em_conv, device
+    # Phases D, D2 and E; the key chain continues past the key phase B
+    # consumed.
+    key_base_of = dict.fromkeys(cluster_tasks, 1 if estimator.use_group_post_gibbs else 0)
+    gibbs_jobs = _nested_em_and_gibbs(
+        estimator, cluster_data, cluster_tasks, all_tasks, rng_seed, rank_of, key_base_of,
+        device, clock,
     )
-    clock.lap(PHASES[3][0], f"{PHASES[3][1]} ({len(all_tasks)} tasks)")
-
-    per_cluster: Dict[int, List] = {}
-    for (ci, _), result in zip(all_tasks, em_results):
-        per_cluster.setdefault(ci, []).append(result)
-
-    # Phase D2 (device): read-count Gibbs per selected subset; the key
-    # chain continues past the key phase B consumed.
-    gibbs_jobs = 0
-    if estimator.num_gibbs_samples > 0:
-        task_index = {id(task): i for i, (_, task) in enumerate(all_tasks)}
-        key_base = 1 if estimator.use_group_post_gibbs else 0
-        gibbs_jobs = _nested_gibbs(
-            estimator, cluster_data, cluster_tasks, per_cluster, rng_seed, rank_of,
-            key_base, device, packed, task_index,
-        )
-        clock.lap(PHASES[4][0], f"{PHASES[4][1]} ({gibbs_jobs} jobs)")
-
-    # Phase E (host): posterior-weighted combination per cluster.
-    for ci, tasks in cluster_tasks.items():
-        est = cluster_data[ci][0]
-        estimator.combine_subset_tasks(est, tasks, per_cluster.get(ci, []))
-    clock.lap(*PHASES[5])
     return {
         "phase_seconds": clock.seconds,
         "scored_clusters": len(meta),
@@ -328,22 +315,187 @@ def batched_haplotype_transcripts(
     }
 
 
-def _nested_gibbs(
-    estimator, cluster_data, cluster_tasks, per_cluster, rng_seed, rank_of, key_base,
-    device, packed, task_index,
+def batched_haplotype_transcripts_independent(
+    estimator, cluster_data, device: torch.device, rng_seed: int = 0, ranks=None
+) -> Dict:
+    """Batched independent-group nested inference (--ind-hap-inference)
+    on ``device`` (``batched_haplotype_transcripts_independent`` of the
+    JAX package, ``batched_models.py:127-393``, which is bitwise the
+    per-cluster ``_infer_independent_groups``); mutates the estimates in
+    cluster_data in place.  Phases:
+
+    * I1 (host): one matrix per (cluster, transcript group) job, one
+      threaded native call;
+    * I2 (device): every job's group posteriors through the engines of
+      phase B (or, under --use-hap-gibbs, the posterior sampler keyed by
+      key ``gi`` of its cluster's chain);
+    * I3 (host): subset sampling (:func:`_sample_subsets`);
+    * C (host): the task matrices, one threaded native call;
+    * D, D2, E as in :func:`batched_haplotype_transcripts`, D2 continuing
+      each cluster's numpy stream and key chain where I3 and I2 left them.
+
+    Returns ``phase_seconds``, ``scored_clusters`` (the posterior jobs of
+    phase I2), ``group_engine``, the full enumeration's host-engine
+    clusters and seconds, ``em_tasks`` and ``gibbs_jobs``."""
+    if not (supports_batched_nested(estimator) and not estimator.infer_collapsed):
+        raise NotImplementedError("independent groups only (--ind-hap-inference)")
+    clock = _PhaseClock(device)
+    rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
+
+    # Phase I1 (host): one matrix per (cluster, transcript group).
+    jobs = []  # (ci, gi, group)
+    cluster_groups: Dict[int, List[List[int]]] = {}
+    dense_clusters = []
+    slot_of_ci: Dict[int, int] = {}
+    group_jobs = []
+    group_counts_of = []
+    for ci, (est, cluster_probs) in enumerate(cluster_data):
+        est.reset(0, 0)
+        if not cluster_probs:
+            continue
+        path_groups = estimator.find_path_groups(est.paths)
+        cluster_groups[ci] = path_groups
+        slot_of_ci[ci] = len(dense_clusters)
+        dense_clusters.append(cluster_matrix(cluster_probs, len(est.paths)))
+        for gi, group in enumerate(path_groups):
+            flat = np.empty(2 * len(group), dtype=np.int64)
+            flat[0::2] = 1
+            flat[1::2] = group
+            group_jobs.append((slot_of_ci[ci], (flat, len(group))))
+            group_counts_of.append([est.paths[i].source_count for i in group])
+            jobs.append((ci, gi, group))
+
+    multi = native_subset_collapse_multi(dense_clusters, group_jobs, estimator.prob_precision)
+    if multi is not None:
+        inputs = [
+            (full[:, :-1], full[:, -1], counts, gc)
+            for (full, counts), gc in zip(multi, group_counts_of)
+        ]
+    else:
+        inputs = [
+            estimator._subset_matrix(
+                cluster_data[ci][1], group, len(cluster_data[ci][0].paths)
+            ) + (gc,)
+            for (ci, _, group), gc in zip(jobs, group_counts_of)
+        ]
+    clock.lap("I1", f"group matrices ({len(jobs)} jobs)")
+
+    # Phase I2 (device): the group posteriors of every job; under
+    # --use-hap-gibbs job gi of a cluster takes key gi of its chain.
+    fallback = dict(HOST_ENUMERATION)
+    if estimator.use_group_post_gibbs:
+        cis = sorted(cluster_groups)
+        depth = max((len(cluster_groups[ci]) for ci in cis), default=0)
+        chains = prng.key_chains(rng_seed, [rank_of(ci) for ci in cis], depth) if cis else []
+        chain_of = {ci: chains[i] for i, ci in enumerate(cis)}
+        keys = [chain_of[ci][gi] for ci, gi, _ in jobs]
+        results = path_group_posteriors_gibbs_batched(inputs, estimator.group_size, keys, device)
+    else:
+        results = _group_posteriors_batched(
+            inputs, estimator.group_size, estimator.min_hap_prob, device
+        )
+    engine = _group_engine(estimator.group_size, estimator.use_group_post_gibbs)
+    clock.lap("I2", engine)
+    fallback = _fallback_since(fallback)
+
+    # Phase I3 (host): subset sampling from each cluster's numpy stream.
+    cluster_tasks, all_tasks, key_base_of, np_rng_of = _sample_subsets(
+        estimator, cluster_data, cluster_groups, jobs, results, rng_seed, rank_of
+    )
+    clock.lap("I3", "subset sampling")
+
+    # Phase C (host): every task matrix in one threaded native call.
+    fill_jobs = []
+    for ci, task in all_tasks:
+        collapsed = task["collapsed"]
+        flat = np.empty(2 * len(collapsed), dtype=np.int64)
+        flat[0::2] = 1
+        flat[1::2] = collapsed
+        fill_jobs.append((slot_of_ci[ci], (flat, len(collapsed))))
+    multi_fill = native_subset_collapse_multi(dense_clusters, fill_jobs, estimator.prob_precision)
+    if multi_fill is not None:
+        for (_, task), (sub_full, sub_counts) in zip(all_tasks, multi_fill):
+            task["matrix"] = sub_full
+            task["counts"] = sub_counts
+    else:
+        for ci, tasks in cluster_tasks.items():
+            if tasks:
+                estimator.fill_subset_matrices(
+                    cluster_data[ci][1], len(cluster_data[ci][0].paths), tasks
+                )
+    clock.lap("C", f"task fill ({len(all_tasks)} tasks)")
+
+    gibbs_jobs = _nested_em_and_gibbs(
+        estimator, cluster_data, cluster_tasks, all_tasks, rng_seed, rank_of, key_base_of,
+        device, clock, np_rng_of=np_rng_of,
+    )
+    return {
+        "phase_seconds": clock.seconds,
+        "scored_clusters": len(jobs),
+        "group_engine": engine,
+        **fallback,
+        "em_tasks": len(all_tasks),
+        "gibbs_jobs": gibbs_jobs,
+    }
+
+
+def _nested_em_and_gibbs(
+    estimator, cluster_data, cluster_tasks, all_tasks, rng_seed, rank_of, key_base_of,
+    device, clock, np_rng_of=None,
 ) -> int:
-    """Phase D2 of the nested driver (``_nested_em_and_gibbs`` of the
+    """Phases D, D2 (with -n) and E of both nested routes
+    (``_nested_em_and_gibbs`` of the JAX package, ``batched_models.py:
+    1318-1451``): one EM run over every (cluster, subset) task, the
+    read-count Gibbs jobs (:func:`_nested_gibbs`) and the
+    posterior-weighted combination per cluster, each lapped on
+    ``clock``.  Returns the number of Gibbs jobs."""
+    em_inputs = [(task["matrix"], task["counts"]) for _, task in all_tasks]
+    em_results, packed = run_batched_em_packed(
+        em_inputs, estimator.max_em_its, estimator.max_rel_em_conv, device
+    )
+    clock.lap(PHASES[3][0], f"{PHASES[3][1]} ({len(all_tasks)} tasks)")
+
+    per_cluster: Dict[int, List] = {}
+    for (ci, _), result in zip(all_tasks, em_results):
+        per_cluster.setdefault(ci, []).append(result)
+
+    gibbs_jobs = 0
+    if estimator.num_gibbs_samples > 0:
+        task_index = {id(task): i for i, (_, task) in enumerate(all_tasks)}
+        gibbs_jobs = _nested_gibbs(
+            estimator, cluster_data, cluster_tasks, per_cluster, rng_seed, rank_of,
+            key_base_of, device, packed, task_index, np_rng_of,
+        )
+        clock.lap(PHASES[4][0], f"{PHASES[4][1]} ({gibbs_jobs} jobs)")
+
+    for ci, tasks in cluster_tasks.items():
+        est = cluster_data[ci][0]
+        estimator.combine_subset_tasks(est, tasks, per_cluster.get(ci, []))
+    clock.lap(*PHASES[5])
+    return gibbs_jobs
+
+
+def _nested_gibbs(
+    estimator, cluster_data, cluster_tasks, per_cluster, rng_seed, rank_of, key_base_of,
+    device, packed, task_index, np_rng_of=None,
+) -> int:
+    """Phase D2 of the nested routes (``_nested_em_and_gibbs`` of the
     JAX package, ``batched_models.py:1346-1442``): per cluster the host
     allocates the -n samples over its subsets by sequential binomial
-    thinning from the cluster's numpy stream, each subset with samples is
-    a job keyed by the cluster's next key (after the ``key_base`` keys
-    phase B took), and every job runs in one batched sampler call.
-    Attaches the samples; returns the number of jobs."""
+    thinning from the cluster's numpy stream (``np_rng_of[ci]`` where
+    an earlier phase drew from it, else a fresh one), each subset with
+    samples is a job keyed by the cluster's next key (after the
+    ``key_base_of[ci]`` keys the posterior phase took), and every job
+    runs in one batched sampler call.  Attaches the samples; returns the
+    number of jobs."""
     jobs = []  # (ci, key index in cluster, task, abundances, noise count, samples)
     key_ranks = []
     max_depth = 0
     for ci, tasks in cluster_tasks.items():
-        np_rng = np.random.default_rng((rng_seed, rank_of(ci)))
+        if np_rng_of is not None and ci in np_rng_of:
+            np_rng = np_rng_of[ci]
+        else:
+            np_rng = np.random.default_rng((rng_seed, rank_of(ci)))
         remaining_gibbs = estimator.num_gibbs_samples
         remaining_prob = 1.0
         key_count = 0
@@ -361,7 +513,7 @@ def _nested_gibbs(
                     key_count += 1
         if key_count:
             key_ranks.append(ci)
-            max_depth = max(max_depth, key_base + key_count)
+            max_depth = max(max_depth, key_base_of[ci] + key_count)
     if not jobs:
         return 0
 
@@ -372,7 +524,7 @@ def _nested_gibbs(
          float(task["counts"].sum()))
         for _, _, task, abundances, noise_count, _ in jobs
     ]
-    keys = [chain_of[ci][key_base + key_idx] for ci, key_idx, _, _, _, _ in jobs]
+    keys = [chain_of[ci][key_base_of[ci] + key_idx] for ci, key_idx, _, _, _, _ in jobs]
     samples = [job[5] for job in jobs]
     reuse = None
     if packed is not None:
@@ -383,6 +535,168 @@ def _nested_gibbs(
     for (ci, _, task, _, _, _), (noise_samples, path_samples) in zip(jobs, results):
         _attach_gibbs_samples(cluster_data[ci][0], task["collapsed"], noise_samples, path_samples)
     return len(jobs)
+
+
+def _sample_subsets(estimator, cluster_data, cluster_groups, jobs, results, rng_seed, rank_of):
+    """Phase I3 (host) of the independent-group route: per cluster, one
+    uniform block of 1/min_hap_prob samples per transcript-group job from
+    the cluster's numpy stream, a group set picked per sample, and the
+    distinct subsets with their sampled mass.  The body is a verbatim copy
+    of ``batched_haplotype_transcripts_independent`` in the JAX package
+    (``batched_models.py:211-358``; tests/test_torch_ind_hap.py pins it).
+    Returns (cluster_tasks, all_tasks, key_base_of, np_rng_of): the
+    subset specs per cluster and in order, the keys phase I2 took per
+    cluster, and each cluster's numpy stream, to be continued by phase
+    D2."""
+    per_cluster_jobs: Dict[int, List] = {}
+    for (ci, gi, group), res in zip(jobs, results):
+        per_cluster_jobs.setdefault(ci, []).append((group, res))
+
+    num_samples = math.floor(1.0 / estimator.min_hap_prob)
+    cluster_tasks: Dict[int, List[dict]] = {}
+    all_tasks: List[Tuple[int, dict]] = []
+    key_base_of: Dict[int, int] = {}
+    np_rng_of: Dict[int, np.random.Generator] = {}
+    inc = 1.0 / num_samples
+    # repeated_sums[k] = inc added k times to 0.0 (np.cumsum performs
+    # the same sequential float64 additions the per-sample loop does, so
+    # looking the total up is bitwise identical to adding in a loop).
+    repeated_sums = np.empty(num_samples + 1, dtype=np.float64)
+    repeated_sums[0] = 0.0
+    np.cumsum(np.full(num_samples, inc), out=repeated_sums[1:])
+    for ci in cluster_groups:
+        est, cluster_probs = cluster_data[ci]
+        np_rng = np.random.default_rng((rng_seed, rank_of(ci)))
+        # Distinct transcript-group choices repeat across the ~1/p
+        # samples, and disjoint groups make the choice tuple determine
+        # the subset — so dedup the choice matrix first and expand only
+        # unique rows (first-seen order; per-key mass accumulated by the
+        # same repeated additions the per-sample loop performs).
+        jobs_ci = per_cluster_jobs.get(ci, [])
+        choice_cols = []
+        decode_cache: List[Dict[int, List[int]]] = []
+        # One uniform block per cluster replaces the per-job
+        # Generator.choice calls: choice(n, size, p) draws
+        # self.random(size) and searchsorts the normalised CDF, so a
+        # (jobs, samples) block consumed row-major is the identical
+        # stream and the searchsorted picks are bitwise identical
+        # (verified against numpy 2.x; per-call validation overhead
+        # dominated this loop).
+        if jobs_ci:
+            uniform_block = np_rng.random((len(jobs_ci), num_samples))
+        for j, (group, (groups_g, posteriors)) in enumerate(jobs_ci):
+            if len(groups_g) == 1:
+                # Single candidate: every sample picks group-set 0 (the
+                # job's uniform row was still drawn, keeping the stream
+                # aligned with the per-cluster estimator's choice call).
+                choice_cols.append(None)
+                decode_cache.append({})
+                continue
+            p = np.asarray(posteriors, dtype=np.float64)
+            # Generator.choice's input validation, kept explicitly: a
+            # degenerate posterior must fail loudly, not mis-sample
+            # (an all-zero vector would make the CDF NaN and searchsorted
+            # return an out-of-range choice).
+            if not np.isfinite(p).all() or (p < 0).any() or p.sum() <= 0:
+                raise ValueError(
+                    "group posteriors contain NaN/inf, negative entries, "
+                    "or sum to zero"
+                )
+            p = p / p.sum()
+            cdf = p.cumsum()
+            cdf /= cdf[-1]
+            choice_cols.append(cdf.searchsorted(uniform_block[j], side="right"))
+            decode_cache.append({})
+
+        def mapped(j: int, choice: int) -> List[int]:
+            # Decode a chosen group-set lazily (only chosen indices are
+            # ever needed; eager decoding of every candidate group-set
+            # dominated this loop).
+            cache = decode_cache[j]
+            hit = cache.get(choice)
+            if hit is None:
+                group, (groups_g, _) = jobs_ci[j]
+                hit = [group[l] for l in sorted(groups_g[choice])]
+                cache[choice] = hit
+            return hit
+
+        subset_probs: Dict[tuple, float] = {}
+        if choice_cols:
+            # Pack each sample's per-group choices into one integer and
+            # dedup with a 1-D unique; first-seen order (and the
+            # per-key repeated additions) replicate the per-sample loop.
+            sizes = [len(groups_g) for _, (groups_g, _) in jobs_ci]
+            space = 1
+            for s in sizes:
+                space *= s
+            if space == 1:
+                # Every job has one candidate group-set: all samples
+                # pick the same subset (packed would be all zeros).
+                rows = [(0, num_samples)]
+                decode = True
+            elif space <= 2**62:
+                packed = np.zeros(num_samples, dtype=np.int64)
+                stride = 1
+                for col, s in zip(choice_cols, sizes):
+                    if col is not None:  # None = all-zero column (s == 1)
+                        packed += col.astype(np.int64) * stride
+                    stride *= s
+                uniq, first_idx, counts = np.unique(
+                    packed, return_index=True, return_counts=True
+                )
+                rows = [
+                    (int(uniq[u]), int(counts[u]))
+                    for u in np.argsort(first_idx, kind="stable")
+                ]
+                decode = True
+            else:  # pragma: no cover - pathological group counts
+                from collections import Counter
+
+                rows = list(
+                    Counter(
+                        zip(
+                            *(
+                                c.tolist() if c is not None else [0] * num_samples
+                                for c in choice_cols
+                            )
+                        )
+                    ).items()
+                )
+                decode = False
+            for packed_key, cnt in rows:
+                subset: List[int] = []
+                if decode:
+                    rem = packed_key
+                    for j, s in enumerate(sizes):
+                        subset.extend(mapped(j, rem % s))
+                        rem //= s
+                else:
+                    for j, choice in enumerate(packed_key):
+                        subset.extend(mapped(j, choice))
+                key = tuple(sorted(subset))
+                prev = subset_probs.get(key)
+                if prev is None:
+                    # inc added cnt times from 0.0, via the lookup table.
+                    subset_probs[key] = float(repeated_sums[cnt])
+                else:
+                    # Resumed accumulation (two choice tuples mapping to
+                    # the same sorted subset) must keep the loop's exact
+                    # addition order.
+                    for _ in range(cnt):
+                        prev += inc
+                    subset_probs[key] = prev
+        else:
+            subset_probs[()] = float(repeated_sums[num_samples])
+
+        est.total_count = total_read_count(cluster_probs)
+        tasks = estimator.prepare_subset_specs(subset_probs)
+        cluster_tasks[ci] = tasks
+        all_tasks.extend((ci, task) for task in tasks)
+        key_base_of[ci] = (
+            len(per_cluster_jobs.get(ci, [])) if estimator.use_group_post_gibbs else 0
+        )
+        np_rng_of[ci] = np_rng
+    return cluster_tasks, all_tasks, key_base_of, np_rng_of
 
 
 def _attach_gibbs_samples(est, path_ids, noise_samples, path_samples) -> None:

@@ -8,11 +8,10 @@ originals): the batched model functions in
 (source groups, subset specs, the posterior-weighted combine, the
 strains cover tasks).  :class:`ClusterRNG` draws its keys from the
 port's own threefry (:mod:`rpvg_tpu_torch.prng`), bit-exact with
-``jax.random``.  The two Gibbs samplers the copied ``estimate`` paths
-name run one cluster through the batched samplers on the CPU, and the
-full enumeration is the host engine of :mod:`rpvg_tpu_torch.infer.
-posteriors`; the other per-cluster engines are not ported and raise
-``NotImplementedError``.
+``jax.random``.  The per-cluster engines the copied ``estimate`` paths
+name run one cluster on the CPU: the EM, the diploid posteriors and the
+two Gibbs samplers through the batched functions, the full enumeration
+in the host engine of :mod:`rpvg_tpu_torch.infer.posteriors`.
 """
 
 from __future__ import annotations
@@ -37,18 +36,32 @@ from rpvg_tpu_torch.infer.posteriors import path_group_posteriors_full
 from rpvg_tpu_torch.probabilities import ReadPathProbs
 
 
-def _not_ported(what: str, item: int):
-    def raise_not_ported(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not yet ported (ROADMAP queue 1, item {item})")
+def em_abundances(probs, counts, total_count, max_em_its=10000, max_rel_em_conv=0.001):
+    """One task of :func:`rpvg_tpu_torch.infer.batching.run_batched_em`
+    on the CPU, the native kernel where it is loaded, as the JAX
+    package's ``em_abundances`` runs there: (path read counts, noise
+    count).  The fold takes the counts' sum as the total, which is the
+    ``total_count`` every copied caller passes."""
+    import torch
 
-    raise_not_ported.__name__ = what.replace(" ", "_")
-    return raise_not_ported
+    from rpvg_tpu_torch.infer.batching import run_batched_em
+
+    [result] = run_batched_em(
+        [(probs, counts)], max_em_its, max_rel_em_conv, torch.device("cpu")
+    )
+    return result
 
 
-# Per-cluster engines the copied estimate() methods name; batched
-# inference never calls them.
-em_abundances = _not_ported("per-cluster EM", 14)
-path_group_posteriors_diploid = _not_ported("per-cluster diploid posteriors", 14)
+def path_group_posteriors_diploid(probs, noise, counts, path_counts, min_rel_likelihood):
+    """One cluster of :func:`rpvg_tpu_torch.infer.posteriors.
+    path_group_posteriors_diploid` on the CPU: (groups, posteriors)."""
+    import torch
+
+    from rpvg_tpu_torch.infer import posteriors
+
+    return posteriors.path_group_posteriors_diploid(
+        probs, noise, counts, path_counts, min_rel_likelihood, torch.device("cpu")
+    )
 
 
 def gibbs_read_count_samples(

@@ -8,12 +8,11 @@ are copied, not imported, because ``rpvg_tpu.pipeline`` imports jax.
 
 Only :func:`run_pipeline` and :func:`run_inference_phases` are
 rewritten: the device is passed down explicitly, and there is no
-backend probe, watchdog or ``jax.profiler`` hook.  All four inference
-models are ported, with read-count Gibbs sampling (``-n``),
-``haplotypes`` and ``haplotype-transcripts`` at every ploidy (the
-latter with collapsed groups), both with ``--use-hap-gibbs``;
-:func:`unported_reason` names the ROADMAP item of every other
-configuration.
+backend probe, watchdog or ``jax.profiler`` hook.  Every configuration
+of the JAX package runs: the four inference models, read-count Gibbs
+sampling (``-n``), ``haplotypes`` and ``haplotype-transcripts`` at every
+ploidy, ``--use-hap-gibbs`` and ``--ind-hap-inference``; the
+multi-process entry points are in :mod:`rpvg_tpu_torch.parallel.multihost`.
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ from rpvg_tpu_torch.probabilities import PathInfo, ReadPathProbs
 from rpvg_tpu_torch.projection import AlignmentPath, AlignmentPathFinder
 from rpvg_tpu_torch.infer.batched_models import (
     batched_haplotype_transcripts,
+    batched_haplotype_transcripts_independent,
     batched_haplotypes,
     batched_strains,
     batched_transcripts,
@@ -48,16 +48,6 @@ from rpvg_tpu_torch.infer.batched_models import (
     supports_batched_transcripts,
 )
 from rpvg_tpu_torch.infer.estimators import make_estimator
-
-
-def unported_reason(config: "PipelineConfig", multiprocess: int = 0) -> Optional[str]:
-    """Why ``config`` cannot run on the port yet (naming the ROADMAP
-    queue-1 item that ports it), or None for a ported configuration."""
-    if config.ind_hap_inference:
-        return "--ind-hap-inference is not yet ported (ROADMAP queue 1, item 14)"
-    if multiprocess > 1:
-        return "--multiprocess > 1 is not yet ported (ROADMAP queue 1, item 16)"
-    return None
 
 
 # ------------------------------------------------- verbatim host functions
@@ -1038,9 +1028,6 @@ def run_pipeline(config: PipelineConfig, device: torch.device) -> Dict:
     returns summary stats, among them the seconds of the fragment pass,
     the matrix build, inference phases A-E (``phase_seconds``), the
     outputs and the whole run (``wall_seconds``)."""
-    reason = unported_reason(config)
-    if reason is not None:
-        raise NotImplementedError(reason)
     t_start = time.perf_counter()
     log = lambda msg: print(msg, file=sys.stderr)  # noqa: E731
 
@@ -1095,11 +1082,20 @@ def run_inference_phases(
     device: torch.device,
     log=lambda msg: print(msg, file=sys.stderr),
     finder=None,
+    cluster_filter=None,
+    skip_outputs: bool = False,
+    prob_collector: Optional[List] = None,
     info_future=None,
 ) -> Dict:
     """Everything downstream of the fragment index: distribution
-    re-fit, clustering, the batched inference phases A-E on ``device``
-    and the outputs."""
+    re-fit, clustering, the batched inference phases on ``device`` and
+    the outputs.
+
+    The distributed runner's hooks, as in the JAX package:
+    ``cluster_filter(rank)`` keeps the cluster ranks this process owns;
+    ``skip_outputs`` writes no file (the Gibbs samples stay on the
+    results); ``prob_collector``, with ``skip_outputs`` and ``-b``,
+    receives the formatted probability blocks as (rank, text)."""
     from rpvg_tpu_torch.native import set_thread_budget
 
     set_thread_budget(config.threads)
@@ -1208,15 +1204,26 @@ def run_inference_phases(
     # Clusters largest first, ties by descending index (the reference's
     # schedule); the rank becomes the output ClusterID.
     order = np.lexsort((np.arange(all_sizes.size), all_sizes))[::-1].tolist()
+    # A process of a distributed run owns a subset of the cluster ranks
+    # (the rank keys the random streams and is the ClusterID).
+    owned_ranks = [
+        rank for rank in range(len(order))
+        if cluster_filter is None or cluster_filter(rank)
+    ]
+    order = [order[rank] for rank in owned_ranks]
 
     prob_writer = None
-    if config.write_probs:
+    if config.write_probs and not skip_outputs:
         prob_writer = writers.ProbabilityClusterWriter(
             config.output_prefix + "_probs", config.prob_precision,
             defer_publish=True,
         )
     gibbs_writer = None
-    if config.num_gibbs_samples > 0 and config.inference_model != "haplotypes":
+    if (
+        config.num_gibbs_samples > 0
+        and config.inference_model != "haplotypes"
+        and not skip_outputs
+    ):
         gibbs_writer = writers.ReadCountGibbsSamplesWriter(
             config.output_prefix + "_gibbs", config.num_gibbs_samples,
             defer_publish=True,
@@ -1251,7 +1258,7 @@ def run_inference_phases(
                 all_lengths, all_eff_lengths,
                 prob_digits=prob_digits, id_concat=id_concat, id_offsets=id_offsets,
             )
-            cluster_data = list(enumerate(matrix_results))
+            cluster_data = list(zip(owned_ranks, matrix_results))
         elif matrix_mode:
             matrix_results = build_cluster_matrices_batched(
                 config, paths_index, frag_length_dist,
@@ -1260,7 +1267,7 @@ def run_inference_phases(
                 haplotype_info, collapse_haps, finder, frag_log_probs,
                 all_lengths, all_eff_lengths,
             )
-            cluster_data = list(enumerate(matrix_results))
+            cluster_data = list(zip(owned_ranks, matrix_results))
         else:
             cluster_data = [
                 (
@@ -1273,20 +1280,25 @@ def run_inference_phases(
                         all_lengths=all_lengths, all_eff_lengths=all_eff_lengths,
                     ),
                 )
-                for rank, cluster_idx in enumerate(order)
+                for rank, cluster_idx in zip(owned_ranks, order)
             ]
         matrix_seconds = time.perf_counter() - t_phase
 
         # Native '-b' fast path: the formatted blocks exist before any
         # inference runs, so the writer thread compresses them during it.
         if prob_texts is not None:
-            for i, (_, (paths, _)) in enumerate(cluster_data):
-                prob_writer.add_block(
+            for i, (rank, (paths, _)) in enumerate(cluster_data):
+                block = (
                     writers.probability_block_header(paths) + prob_texts[i]
                     if prob_texts[i]
                     else ""
                 )
-            prob_writer.close_async()
+                if prob_writer is not None:
+                    prob_writer.add_block(block)
+                elif prob_collector is not None and block:
+                    prob_collector.append((rank, block))
+            if prob_writer is not None:
+                prob_writer.close_async()
 
         results: List[ClusterResult] = []
         batch_data = []
@@ -1299,8 +1311,12 @@ def run_inference_phases(
             results.append(ClusterResult(rank + 1, estimates))
         # The rank keys each cluster's random streams (-n, --use-hap-gibbs).
         seeded = (config.rng_seed, batch_ranks)
-        if supports_batched_nested(estimator):
+        if supports_batched_nested(estimator) and estimator.infer_collapsed:
             inference = batched_haplotype_transcripts(estimator, batch_data, device, *seeded)
+        elif supports_batched_nested(estimator):
+            inference = batched_haplotype_transcripts_independent(
+                estimator, batch_data, device, *seeded
+            )
         elif supports_batched_strains(estimator):
             inference = batched_strains(estimator, batch_data, device, *seeded)
         elif supports_batched_transcripts(estimator):
@@ -1312,6 +1328,13 @@ def run_inference_phases(
             for _, (paths, cluster_probs) in cluster_data:
                 prob_writer.add_cluster(cluster_probs, paths)
             prob_writer.close_async()
+        elif prob_collector is not None and prob_digits is not None and prob_texts is None:
+            for rank, (paths, cluster_probs) in cluster_data:
+                block = writers.format_probability_cluster_block(
+                    cluster_probs, paths, prob_digits
+                )
+                if block:
+                    prob_collector.append((rank, block))
         gibbs_writer_seconds = gibbs_join_seconds = 0.0
         if gibbs_writer is not None:
             t_gibbs = time.perf_counter()
@@ -1328,7 +1351,8 @@ def run_inference_phases(
         )
 
         t_out = time.perf_counter()
-        write_outputs(config, results, fragment_index.unaligned_count)
+        if not skip_outputs:
+            write_outputs(config, results, fragment_index.unaligned_count)
         output_seconds = time.perf_counter() - t_out
         # Join both writers before publishing either; the wait for the
         # _gibbs.txt.gz thread's compression is timed on its own.

@@ -548,3 +548,121 @@ def test_ploidy_3_cli_on_cuda(cuda, model, gibbs, tmp_path):
                 1e-6, 1e-6,
             )
             assert report["rows"] > 0
+
+
+# ------------------------------------- --ind-hap-inference and --multiprocess
+
+
+def _gene_panel_files(tmp_path):
+    from rpvg_tpu_torch import sim
+
+    panel = sim.build_gene_panel(
+        num_genes=5, isoforms_per_gene=3, num_haplotypes=4,
+        exons_per_gene=5, exon_length=100, variant_sites=3, seed=61,
+    )
+    records, _ = sim.simulate_read_pairs(
+        panel, 1200, read_length=80, frag_mean=200, frag_sd=20, seed=63,
+        abundances=sim.gene_abundances(panel, seed=67), multipath_dag=True,
+    )
+    files = {n: str(tmp_path / n) for n in ("graph.json", "panel.json", "aln.json", "info.tsv")}
+    sim.write_alignment_json(records, files["aln.json"])
+    panel.write_graph_json(files["graph.json"])
+    panel.write_panel_json(files["panel.json"])
+    panel.write_info_tsv(files["info.tsv"])
+    return files
+
+
+def _nested_argv(files, prefix, backend, extra=()):
+    return ["-g", files["graph.json"], "-p", files["panel.json"], "-a", files["aln.json"],
+            "-o", prefix, "-i", "haplotype-transcripts", "-f", files["info.tsv"], "-r", "5",
+            "--score-not-qual", "--backend", backend, *extra]
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [(), ("-y", "3"), ("-n", "8"), ("--use-hap-gibbs",)],
+    ids=["y2", "y3", "n8", "hap-gibbs"],
+)
+def test_ind_hap_cli_on_cuda_matches_cpu(cuda, extra, tmp_path):
+    """`--ind-hap-inference` on cuda: phase D's tasks all go to the EM
+    kernel (and phase I2's jobs to the group scorer at -y 3, to the pair
+    sampler under --use-hap-gibbs); without --use-hap-gibbs the estimate
+    files match --backend cpu within rtol 1e-6 (-n leaves them alone)."""
+    import os
+
+    from rpvg_tpu_torch import cli
+    from rpvg_tpu_torch.compare import compare_estimate_files
+    from rpvg_tpu_torch.ops import group_scores_cuda
+
+    files = _gene_panel_files(tmp_path)
+    extra = ("--ind-hap-inference", *extra)
+    tasks = em_cuda.TASKS
+    scorers = group_scores_cuda.CLUSTERS, posterior_gibbs_cuda.CLUSTERS
+    rc, stats = cli.run_cli(_nested_argv(files, str(tmp_path / "cuda"), "cuda", extra))
+    assert rc == 0
+    assert em_cuda.TASKS == tasks + stats["em_tasks"] > tasks
+    if "-y" in extra:
+        assert group_scores_cuda.CLUSTERS == scorers[0] + stats["scored_clusters"]
+    if "--use-hap-gibbs" in extra:
+        assert posterior_gibbs_cuda.CLUSTERS == scorers[1] + stats["scored_clusters"]
+        return
+    assert cli.main(_nested_argv(files, str(tmp_path / "cpu"), "cpu", extra)) == 0
+    for suffix in (".txt", "_joint.txt"):
+        report = compare_estimate_files(
+            os.path.join(tmp_path, "cuda" + suffix), os.path.join(tmp_path, "cpu" + suffix),
+            1e-6, 1e-6,
+        )
+        assert report["rows"] > 0
+
+
+_FORK_PROBE = r"""
+import json, os, sys
+import torch
+from rpvg_tpu_torch import cli
+from rpvg_tpu_torch.parallel import multihost
+
+out_dir, argv = sys.argv[1], sys.argv[2:]
+shard_worker = multihost._shard_worker
+
+def recording_worker(args):
+    with open(os.path.join(out_dir, f"worker_{os.getpid()}.json"), "w") as handle:
+        json.dump({"initialized": torch.cuda.is_initialized(),
+                   "bad_fork": torch.cuda._is_in_bad_fork()}, handle)
+    return shard_worker(args)
+
+multihost._shard_worker = recording_worker
+rc = cli.main(argv)
+print(json.dumps({"rc": rc, "parent_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def test_multiprocess_forks_before_cuda(cuda, tmp_path):
+    """`--multiprocess 2` on cuda from a fresh interpreter: each forked
+    worker finds no CUDA state (not initialised, not forked from a
+    process that had it), the parent uses the card after the fork, and
+    the outputs are the single-process run's bytes."""
+    import glob
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from rpvg_tpu_torch import cli
+
+    files = _gene_panel_files(tmp_path)
+    assert cli.main(_nested_argv(files, str(tmp_path / "single"), "cuda")) == 0
+    argv = _nested_argv(files, str(tmp_path / "mp"), "cuda", ("--multiprocess", "2", "-t", "2"))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _FORK_PROBE, str(tmp_path), *argv], capture_output=True,
+        text=True, env=dict(os.environ, PYTHONPATH=repo), timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"rc": 0, "parent_initialized": True}
+    workers = [json.load(open(path)) for path in glob.glob(str(tmp_path / "worker_*.json"))]
+    assert len(workers) == 2
+    assert all(w == {"initialized": False, "bad_fork": False} for w in workers)
+    for suffix in (".txt", "_joint.txt"):
+        with open(str(tmp_path / "mp") + suffix, "rb") as a, open(str(tmp_path / "single") + suffix, "rb") as b:
+            assert a.read() == b.read()

@@ -1,6 +1,6 @@
 """The port's main path end to end on the CPU: golden files, an
 in-process reference run, verbatim-copy drift, a run with jax blocked,
-and the CLI's refusals."""
+and the CLI on the configurations it once refused."""
 
 import inspect
 import os
@@ -17,12 +17,14 @@ import rpvg_tpu.infer.batching as ref_batching
 import rpvg_tpu.infer.estimators as ref_estimators
 import rpvg_tpu.infer.posteriors as ref_posteriors
 import rpvg_tpu.infer.readcount_gibbs as ref_readcount_gibbs
+import rpvg_tpu.parallel.multihost as ref_multihost
 import rpvg_tpu.pipeline as ref_pipeline
 import rpvg_tpu_torch.infer.batched_models as port_batched_models
 import rpvg_tpu_torch.infer.batching as port_batching
 import rpvg_tpu_torch.infer.estimators as port_estimators
 import rpvg_tpu_torch.infer.posteriors as port_posteriors
 import rpvg_tpu_torch.infer.readcount_gibbs as port_readcount_gibbs
+import rpvg_tpu_torch.parallel.multihost as port_multihost
 import rpvg_tpu_torch.pipeline as port_pipeline
 from rpvg_tpu import sim
 from rpvg_tpu_torch import cli
@@ -136,6 +138,42 @@ def test_cpu_slice_probability_file_matches_reference(tmp_path):
         assert port.read() == ref.read()
 
 
+@pytest.mark.parametrize("model", ["transcripts", "haplotype-transcripts"])
+def test_cpu_single_end_matches_reference(model, tmp_path):
+    """--single-end (with the prior fragment length) writes the
+    reference's bytes."""
+    panel = sim.build_gene_panel(
+        num_genes=4, isoforms_per_gene=3, num_haplotypes=4,
+        exons_per_gene=5, exon_length=100, variant_sites=3, seed=81,
+    )
+    records, _ = sim.simulate_single_reads(panel, 800, read_length=80, seed=83)
+    aln = str(tmp_path / "se.json")
+    sim.write_alignment_json(records, aln)
+    info = str(tmp_path / "info.tsv")
+    panel.write_info_tsv(info)
+    graph, paths = _write_inputs(panel, str(tmp_path))
+    ref_prefix = str(tmp_path / "ref")
+    ref_pipeline.run_pipeline(ref_pipeline.PipelineConfig(
+        graph=graph, paths=paths, alignments=aln, output_prefix=ref_prefix,
+        inference_model=model, path_info=info, rng_seed=99, score_not_qual=True,
+        single_end=True, frag_mean=200.0, frag_sd=20.0,
+    ))
+    prefix = str(tmp_path / "port")
+    argv = ["-g", graph, "-p", paths, "-a", aln, "-o", prefix, "-i", model, "-f", info,
+            "-r", "99", "--score-not-qual", "--backend", "cpu", "--single-end",
+            "-m", "200", "-d", "20"]
+    assert cli.main(argv) == 0
+    for suffix in output_suffixes(model):
+        with open(prefix + suffix, "rb") as port, open(ref_prefix + suffix, "rb") as ref:
+            port_bytes = port.read()
+            assert port_bytes == ref.read()
+        assert port_bytes.count(b"\n") > 10
+
+
+def output_suffixes(model):
+    return (".txt", "_joint.txt") if model == "haplotype-transcripts" else (".txt",)
+
+
 # --------------------------------------------------------- drift guard
 
 VERBATIM = [
@@ -180,6 +218,13 @@ VERBATIM = [
 ] + [
     (port_readcount_gibbs, ref_readcount_gibbs, name)
     for name in ("_fold_low_abundance", "run_native_gibbs")
+] + [
+    (port_multihost, ref_multihost, name)
+    for name in (
+        "_merge_shard_indexes", "_shm_payload_min", "_spill_columnar_payload",
+        "_load_spilled_payload", "_shard_worker", "_native_shard_merge",
+        "_merge_columnar_shards", "_run_aranges",
+    )
 ]
 
 
@@ -207,7 +252,22 @@ def test_verbatim_copy_has_not_drifted(port_mod, ref_mod, name):
     assert port_src == ref_src
 
 
+def test_device_only_rewrite_has_not_drifted():
+    """``run_pipeline_sharded`` is the JAX package's but for the device it
+    takes and passes on."""
+    port_src = _absolute_imports(
+        inspect.getsource(port_multihost.run_pipeline_sharded), port_multihost.__name__
+    )
+    ref_src = _absolute_imports(
+        inspect.getsource(ref_multihost.run_pipeline_sharded), ref_multihost.__name__
+    )
+    assert port_src.count("device") == 3  # the parameter, its type, the call
+    stripped = port_src.replace(", device: torch.device", "").replace(", device,", ",")
+    assert stripped == ref_src
+
+
 def test_verbatim_constants_match():
+    assert port_multihost._SHM_DIR == ref_multihost._SHM_DIR
     assert port_pipeline.FRAGMENT_BATCH_SIZE == ref_pipeline.FRAGMENT_BATCH_SIZE
     assert port_posteriors._PAIR_TENSOR_ELEMENT_LIMIT == ref_posteriors._PAIR_TENSOR_ELEMENT_LIMIT
     assert port_posteriors._FULL_ENUM_GROUP_LIMIT == ref_posteriors._FULL_ENUM_GROUP_LIMIT
@@ -298,15 +358,28 @@ def test_cuda_backend_without_cuda_fails(tmp_path, capsys):
         (("--multiprocess", "2"), 16),
     ],
 )
-def test_unported_configuration_exits_1(extra, item, capsys):
-    argv = ["-g", "g.json", "-p", "p.json", "-a", "a.json", "-o", "out",
-            "-i", "haplotype-transcripts", "-f", "info.tsv", "--backend", "cpu", *extra]
-    assert cli.main(argv) == 1
-    err = [ln for ln in capsys.readouterr().err.splitlines() if ln.strip()]
-    assert len(err) == 1
-    assert err[0].startswith("ERROR:") and err[0].endswith(
-        f"not yet ported (ROADMAP queue 1, item {item})"
-    )
+def test_unported_configuration_exits_1(extra, item, tmp_path):
+    """The configurations the port refused with exit 1 until ROADMAP
+    item ``item`` ported them now run on ``--backend cpu``: exit 0 and
+    the ``.txt`` of an in-process ``rpvg_tpu`` run, byte for byte."""
+    panel, aln, info = make_dataset(str(tmp_path), gene_panel=True)
+    graph, paths = _write_inputs(panel, str(tmp_path))
+    argv = ["-g", graph, "-p", paths, "-a", aln, "-o", str(tmp_path / "out"),
+            "-i", "haplotype-transcripts", "-f", info, "--backend", "cpu", *extra,
+            "-r", "99", "--score-not-qual"]
+    assert cli.main(argv) == 0
+    args = cli.build_parser().parse_args(argv)
+    ref_prefix = str(tmp_path / "ref")
+    ref_pipeline.run_pipeline(ref_pipeline.PipelineConfig(
+        graph=graph, paths=paths, alignments=aln, output_prefix=ref_prefix,
+        inference_model=args.inference_model, path_info=info, rng_seed=99,
+        score_not_qual=True, ploidy=args.ploidy, ind_hap_inference=args.ind_hap_inference,
+        use_hap_gibbs=args.use_hap_gibbs, num_gibbs_samples=args.num_gibbs_samples,
+    ))
+    with open(str(tmp_path / "out.txt"), "rb") as port, open(ref_prefix + ".txt", "rb") as ref:
+        port_bytes = port.read()
+        assert port_bytes == ref.read()
+    assert port_bytes.count(b"\n") > 5
 
 
 def test_resolve_device():

@@ -22,7 +22,8 @@ Phases (each prints at least one line; any failure exits non-zero):
    models, haplotypes -y 3 and haplotype-transcripts -f -y 3,
    --ind-hap-inference at -y 2 and -y 3, --multiprocess 2, -b (whose
    _probs.txt.gz must be byte-identical), quality-scored alignments
-   (without --score-not-qual) and --single-end, on small gene panels:
+   (without --score-not-qual), --single-end and --long-reads (400-base
+   single reads), on small gene panels:
    identical rows, numbers within rtol 1e-6 / atol 1e-6;
 4. the main path at bench scale (haplotype-transcripts, 100k read pairs
    over 1,286 genes x 7 isoforms x 4 haplotypes), with launch counters
@@ -79,7 +80,22 @@ Phases (each prints at least one line; any failure exits non-zero):
    interpreter: its workers fork before any CUDA context exists (each
    records the CUDA state it finds), its outputs are phase 4's bytes, and
    its fragment pass (slowest worker's scan, merge) is printed beside
-   phase 4's.
+   phase 4's;
+15. the shard logic of rpvg_tpu_torch/parallel on 4 virtual shards of
+   cuda:0 (autoshard.virtual_devices) with the real kernels: (a) phase
+   4's main path, byte-identical to phase 4's outputs, its wall and tasks
+   per shard beside phase 4's, and (a') its phase-B pair scores in one
+   shard's chunks against four shards' (bitwise, or the largest relative
+   difference stated and held to rtol 1e-10); (b) phase 3's
+   configurations of all four models, -y 3, -b, -n 8 and --use-hap-gibbs
+   against phase 3's one-shard cuda outputs (byte-identical, or the
+   estimate files equal under compare.py with the difference stated);
+   (c) the giant-cluster shard route under a lowered
+   RPVG_TPU_PAIR_TENSOR_LIMIT, asserted to have run; (d) sharded_em_step
+   with the multi-bucket kernel on each shard against its plain version;
+   (e) entry.dryrun_multidevice(4, cuda, virtual=True); (f) with more
+   than one CUDA device, (a) and (e) on the real devices, else a line
+   saying that only virtual shards ran.
 
 Phase 3 also runs the CPU tests' seven Gibbs configurations (-n 8 for
 every abundance model, --use-hap-gibbs for both haplotype models),
@@ -1318,6 +1334,9 @@ CLI_CONFIGS = (
      ("--single-end", "-m", "250", "-d", "25"), False),
     ("transcripts --single-end", "transcripts", "single_end",
      ("--single-end", "-m", "250", "-d", "25"), False),
+    ("haplotype-transcripts --long-reads", "haplotype-transcripts", "long_reads",
+     ("--long-reads",), False),
+    ("transcripts --long-reads", "transcripts", "long_reads", ("--long-reads",), False),
 )
 
 
@@ -1353,7 +1372,7 @@ def phase_cli_configs(cli, compare_estimate_files, datasets, work, threads):
             if probs[0] != probs[1] or not probs[0]:
                 raise AssertionError(f"{label}: _probs.txt.gz differs across devices")
             reports.append(f"_probs.txt.gz {probs[0].count(b'#')} blocks, byte-identical")
-        log(f"phase 3: {label}, 5000 {'reads' if dataset == 'single_end' else 'pairs'}, "
+        log(f"phase 3: {label}, {'2000 reads' if dataset == 'long_reads' else '5000 reads' if dataset == 'single_end' else '5000 pairs'}, "
             f"--backend cuda vs cpu: rows identical; " + "; ".join(reports))
 
 
@@ -1385,21 +1404,23 @@ def write_dataset(sim, rpa, alignments, out_dir, num_genes, num_pairs, seed_pane
     return paths
 
 
-def write_single_end_dataset(sim, out_dir, num_genes, num_reads, seed_panel, seed_reads):
+def write_single_end_dataset(sim, out_dir, num_genes, num_reads, seed_panel, seed_reads,
+                             read_length=100, tag="se_"):
     """write_dataset's gene panel with single-end multipath reads (JSON
-    lines), for --single-end runs."""
+    lines) of ``read_length``, for --single-end and --long-reads runs;
+    file names carry ``tag``."""
     panel = sim.build_gene_panel(
         num_genes=num_genes, isoforms_per_gene=7, num_haplotypes=4,
         exons_per_gene=10, exon_length=120, variant_sites=3, seed=seed_panel,
     )
     records, _ = sim.simulate_single_reads(
-        panel, num_reads, read_length=100, abundances=sim.gene_abundances(panel, seed=7),
+        panel, num_reads, read_length=read_length, abundances=sim.gene_abundances(panel, seed=7),
         seed=seed_reads,
     )
-    paths = {name: os.path.join(out_dir, "se_" + name) for name in
+    paths = {name: os.path.join(out_dir, tag + name) for name in
              ("graph.json", "panel.json", "info.tsv")}
     # Under cli_argv's key for the alignments; the file is JSON lines.
-    paths["aln.rpa"] = os.path.join(out_dir, "se_aln.json")
+    paths["aln.rpa"] = os.path.join(out_dir, tag + "aln.json")
     sim.write_alignment_json(records, paths["aln.rpa"])
     panel.write_graph_json(paths["graph.json"])
     panel.write_panel_json(paths["panel.json"])
@@ -1437,6 +1458,7 @@ def reset_counters():
     for key in posteriors.SCORED_CLUSTERS:
         posteriors.SCORED_CLUSTERS[key] = 0
     posteriors.HOST_ENUMERATION.update(clusters=0, seconds=0.0)
+    posteriors.SHARDED_PAIR_CLUSTERS = 0
 
 
 def read_counters():
@@ -1460,6 +1482,7 @@ def read_counters():
         "scored_cuda": posteriors.SCORED_CLUSTERS.get("cuda", 0),
         "scored_cpu": posteriors.SCORED_CLUSTERS.get("cpu", 0),
         "host_enumeration": posteriors.HOST_ENUMERATION["clusters"],
+        "sharded_pair_clusters": posteriors.SHARDED_PAIR_CLUSTERS,
     }
 
 
@@ -1769,6 +1792,304 @@ def phase_multiprocess(bench, work, threads, main_stats, main_prefix, workers=4)
     return stats, counts
 
 
+VIRTUAL_SHARDS = 4
+
+# Phase 3's configurations that phase 15 repeats on virtual shards: all
+# four models, -y 3, -b, -n 8 and --use-hap-gibbs.
+SHARD_LABELS = (
+    "haplotype-transcripts", "transcripts", "strains", "haplotypes", "haplotypes -y 3",
+    "haplotype-transcripts -y 3", "haplotype-transcripts -b", "transcripts -b",
+    "transcripts -n 8", "strains -n 8", "haplotype-transcripts -n 8",
+    "haplotypes --use-hap-gibbs", "haplotype-transcripts --use-hap-gibbs",
+)
+
+
+def read_outputs(prefix, suffixes):
+    """Each output file's bytes (a .gz file's decompressed bytes)."""
+    import gzip
+
+    out = {}
+    for suffix in suffixes:
+        with (gzip.open if suffix.endswith(".gz") else open)(prefix + suffix, "rb") as handle:
+            out[suffix] = handle.read()
+    return out
+
+
+def sharded_cli_run(torch, device, cli, argv, shards):
+    """One CLI run on ``shards`` virtual shards of the card, counters
+    reset just before and read just after; returns (stats, counters)."""
+    from rpvg_tpu_torch.parallel import autoshard
+
+    with autoshard.virtual_devices(device, shards):
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counters()
+        rc, stats = cli.run_cli(argv)
+        counts = read_counters()
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv[-4:])} on {shards} virtual shards exited {rc}")
+    if stats["data_shards"] != shards:
+        raise AssertionError(f"the run saw {stats['data_shards']} data shards, not {shards}")
+    return stats, counts
+
+
+def hold_sharded_outputs(label, compare, prefix, ref_prefix, suffixes):
+    """'byte-identical', or for a last-bit difference of a pair score
+    (cuBLAS may pick another product for another batch) the compare.py
+    fallback: estimate files equal under compare.py with the largest
+    difference stated, -b and _gibbs.txt.gz files still byte-identical."""
+    ours, ref = read_outputs(prefix, suffixes), read_outputs(ref_prefix, suffixes)
+    differ = [s for s in suffixes if ours[s] != ref[s]]
+    if not differ:
+        return "byte-identical"
+    if any(s.endswith(".gz") for s in differ):
+        raise AssertionError(f"{label}: {differ} differ from one shard's")
+    reports = [compare.compare_estimate_files(prefix + s, ref_prefix + s, RTOL, ATOL_OUT)
+               for s in differ]
+    return (f"{', '.join(differ)} not byte-identical, equal under compare.py (max abs "
+            f"{max(r['max_abs_diff'] for r in reports):.3e}, max rel "
+            f"{max(r['max_rel_diff'] for r in reports):.3e})")
+
+
+def phase_virtual_main_path(torch, device, cli, bench, work, threads, main_stats, main_counts):
+    """Phase 15 (a): phase 4's main path on VIRTUAL_SHARDS virtual shards
+    of the card: phase 4's bytes, every EM task through the ragged kernel
+    (one launch set per shard), wall and tasks per shard beside phase 4's.
+    Returns (stats, counters, phase B's inputs, whether the outputs are
+    phase 4's bytes), the last checked by the caller after (a')."""
+    from rpvg_tpu_torch.infer import batched_models
+
+    captured = []
+    score = batched_models.diploid_posteriors_batched
+
+    def capture(inputs, min_rel_likelihood, on):
+        captured.append((inputs, min_rel_likelihood))
+        return score(inputs, min_rel_likelihood, on)
+
+    prefix = os.path.join(work, "virtual")
+    batched_models.diploid_posteriors_batched = capture
+    try:
+        stats, counts = sharded_cli_run(torch, device, cli, cli_argv(bench, prefix, "cuda", threads),
+                                        VIRTUAL_SHARDS)
+    finally:
+        batched_models.diploid_posteriors_batched = score
+    check_routes("haplotype-transcripts", False, stats, counts)
+    suffixes = output_suffixes("haplotype-transcripts")
+    same = read_outputs(prefix, suffixes) == read_outputs(os.path.join(work, "bench"), suffixes)
+    phases = ", ".join(
+        f"{k} {v:.3f}s (phase 4: {main_stats['phase_seconds'][k]:.3f}s)"
+        for k, v in stats["phase_seconds"].items()
+    )
+    work_by_phase = "; ".join(f"{k} {v}" for k, v in stats["shard_work"].items())
+    log(
+        f"phase 15 (a): haplotype-transcripts -f on {VIRTUAL_SHARDS} virtual shards of cuda:0: "
+        f"{PAIRS} pairs in {stats['wall_seconds']:.2f}s inside the CLI (phase 4: "
+        f"{main_stats['wall_seconds']:.2f}s) = {PAIRS / stats['wall_seconds']:.1f} read pairs/s; "
+        + "".join(f"{name} {stats[key]:.2f}s (phase 4: {main_stats[key]:.2f}s), " for name, key in (
+            ("fragment pass", "fragment_pass_seconds"), ("matrices", "matrix_seconds"),
+            ("outputs", "output_seconds")))
+        + f"phases {phases}; tasks or clusters per shard by phase: {work_by_phase}; "
+        f"{stats['em_tasks']} EM tasks through the ragged kernel in {counts['ragged_launches']} "
+        f"launches (phase 4: {main_counts['ragged_launches']}); .txt and _joint.txt byte-identical "
+        f"to phase 4's: {same}; peak {stats['device_peak_mib_max']:.1f} MiB"
+    )
+    return stats, counts, captured, same
+
+
+def phase_virtual_pair_scores(torch, device, captured):
+    """Phase 15 (a'): the main path's phase B inputs scored in one shard's
+    chunks and in VIRTUAL_SHARDS shards' chunks: bitwise, or the largest
+    relative difference stated and held to rtol 1e-10 with identical -inf
+    and identical selected pairs."""
+    import numpy as np
+
+    from rpvg_tpu_torch.infer import posteriors
+    from rpvg_tpu_torch.parallel import autoshard
+
+    (inputs, min_rel), = captured
+    buckets, _ = posteriors._bucket_plan(inputs)
+
+    def scores(devices):
+        out = {}
+        for chunk, pair_ll, _ in posteriors._score_chunks(inputs, buckets, devices):
+            pair_ll = pair_ll.cpu().numpy()
+            for b, idx in enumerate(chunk):
+                P = inputs[idx][0].shape[1]
+                out[idx] = pair_ll[b, :P, :P]
+        return out
+
+    one, many = scores((device,)), scores((device,) * VIRTUAL_SHARDS)
+    bitwise = all(np.array_equal(one[i], many[i]) for i in one)
+    worst = 0.0
+    for i in one:
+        a, b = one[i], many[i]
+        if not np.array_equal(np.isneginf(a), np.isneginf(b)):
+            raise AssertionError(f"pair scores of cluster {i}: -inf differs across shard counts")
+        finite = np.isfinite(a)
+        rel = np.abs(a[finite] - b[finite]) / np.maximum(np.abs(a[finite]), 1e-300)
+        worst = max(worst, float(rel.max(initial=0.0)))
+    if worst > 1e-10:
+        raise AssertionError(f"pair scores differ across shard counts by rel {worst:.3e}")
+    single = posteriors.diploid_posteriors_batched(inputs, min_rel, device)
+    with autoshard.virtual_devices(device, VIRTUAL_SHARDS):
+        sharded = posteriors.diploid_posteriors_batched(inputs, min_rel, device)
+    for (ga, pa), (gb, pb) in zip(single, sharded):
+        if ga != gb:
+            raise AssertionError("selected pairs differ across shard counts")
+        np.testing.assert_allclose(pb, pa, rtol=1e-10, atol=0)
+    log(
+        f"phase 15 (a'): the main path's {len(one)} phase-B clusters scored in one shard's chunks "
+        f"and in {VIRTUAL_SHARDS} shards' chunks: pair scores "
+        + ("bitwise equal" if bitwise else f"not bitwise, largest relative difference {worst:.3e}")
+        + "; selected pairs identical, posteriors within rtol 1e-10"
+    )
+    return bitwise, worst
+
+
+def phase_virtual_configs(torch, device, cli, compare, datasets, work, threads):
+    """Phase 15 (b): SHARD_LABELS on VIRTUAL_SHARDS virtual shards against
+    phase 3's one-shard cuda runs of the same argv, counters checked."""
+    cli_configs = {c[0]: c for c in CLI_CONFIGS}
+    gibbs_configs = {c[0]: c for c in GIBBS_CONFIGS}
+    held = {}
+    for label in SHARD_LABELS:
+        if label in cli_configs:
+            _, model, dataset, extra, qual = cli_configs[label]
+            info = model == "haplotype-transcripts"
+            name = "small_" + "".join(c if c.isalnum() else "_" for c in label)
+            ref_prefix = os.path.join(work, f"{name}_cuda")
+            paths = datasets[dataset]
+        else:
+            _, model, info, extra, _ = gibbs_configs[label]
+            qual = False
+            ref_prefix = os.path.join(work, f"gibbs_{label.replace(' ', '_')}_cuda")
+            paths = datasets["small"]
+        prefix = ref_prefix + "_shards"
+        argv = cli_argv(paths, prefix, "cuda", threads, model, info, qual) + list(extra)
+        stats, counts = sharded_cli_run(torch, device, cli, argv, VIRTUAL_SHARDS)
+        ploidy = int(extra[list(extra).index("-y") + 1]) if "-y" in extra else 2
+        check_routes(model, False, stats, counts, hap_gibbs="--use-hap-gibbs" in extra,
+                     ploidy=ploidy)
+        suffixes = output_suffixes(model) + (("_probs.txt.gz",) if "-b" in extra else ()) + (
+            ("_gibbs.txt.gz",) if "-n" in extra else ())
+        held[label] = hold_sharded_outputs(label, compare, prefix, ref_prefix, suffixes)
+        log(f"phase 15 (b): {label}, 5000 pairs, {VIRTUAL_SHARDS} virtual shards vs one: "
+            f"{', '.join(suffixes)} {held[label]}; shard work {stats['shard_work']}")
+    return held
+
+
+def phase_virtual_giant(torch, device, cli, compare, small, work, threads, limit="4096"):
+    """Phase 15 (c): haplotypes under RPVG_TPU_PAIR_TENSOR_LIMIT=``limit``
+    on one shard (column blocks) and on VIRTUAL_SHARDS virtual shards (the
+    giant-cluster shard route, asserted to have run)."""
+    from rpvg_tpu_torch.infer import posteriors
+
+    os.environ["RPVG_TPU_PAIR_TENSOR_LIMIT"] = limit
+    try:
+        ran = {}
+        for shards in (1, VIRTUAL_SHARDS):
+            before = posteriors.SHARDED_PAIR_CLUSTERS
+            prefix = os.path.join(work, f"giant_{shards}")
+            sharded_cli_run(torch, device, cli,
+                            cli_argv(small, prefix, "cuda", threads, "haplotypes", False), shards)
+            ran[shards] = posteriors.SHARDED_PAIR_CLUSTERS - before
+    finally:
+        os.environ.pop("RPVG_TPU_PAIR_TENSOR_LIMIT", None)
+    if ran[1] or not ran[VIRTUAL_SHARDS]:
+        raise AssertionError(f"the giant-cluster shard route ran {ran} times (by shard count)")
+    held = hold_sharded_outputs("giant clusters", compare, os.path.join(work, f"giant_{VIRTUAL_SHARDS}"),
+                                os.path.join(work, "giant_1"), (".txt",))
+    log(f"phase 15 (c): haplotypes, RPVG_TPU_PAIR_TENSOR_LIMIT={limit}: {ran[VIRTUAL_SHARDS]} giant "
+        f"clusters scored with their pair rows on {VIRTUAL_SHARDS} virtual shards (none on one "
+        f"shard, which scores them in column blocks); .txt {held}")
+    return ran[VIRTUAL_SHARDS], held
+
+
+def phase_virtual_em_step(torch, device):
+    """Phase 15 (d): parallel/mesh.sharded_em_step on VIRTUAL_SHARDS
+    virtual shards, the multi-bucket kernel on each shard's block, against
+    its plain version (rtol 1e-6); its time beside one shard's."""
+    import numpy as np
+
+    from rpvg_tpu_torch.entry import _example_batch
+    from rpvg_tpu_torch.ops import em_fused_cuda
+    from rpvg_tpu_torch.parallel import autoshard, mesh
+
+    B, R, C = 256, 64, 16
+    probs, counts, col_masks = (torch.from_numpy(a).to(device) for a in _example_batch(B, R, C))
+    inv_eff = torch.full((B, C - 1), 1.0 / 100.0, dtype=torch.float64, device=device)
+    steps = {}
+    for shards in (1, VIRTUAL_SHARDS):
+        with autoshard.virtual_devices(device, shards) as devices:
+            steps[shards] = mesh.sharded_em_step(mesh.make_mesh(devices), 10000, 1e-3)
+    launches = em_fused_cuda.LAUNCHES
+    abund, tpm = steps[VIRTUAL_SHARDS](probs, counts, col_masks, inv_eff)
+    torch.cuda.synchronize()
+    launches = em_fused_cuda.LAUNCHES - launches
+    (plain,), _ = em_fused_cuda.em_fixed_point_padded_plain([(probs, counts, col_masks)], 10000, 1e-3)
+    plain_tpm = float((plain[:, :-1] * counts.sum(dim=1)[:, None] * inv_eff).sum())
+    err = float((abund - plain).abs().max())
+    np.testing.assert_allclose(abund.cpu().numpy(), plain.cpu().numpy(), rtol=RTOL, atol=ATOL_EM)
+    if abs(float(tpm) - plain_tpm) > RTOL * abs(plain_tpm):
+        raise AssertionError(f"sharded TPM {float(tpm)} against plain {plain_tpm}")
+    ms = {shards: cuda_ms(lambda s=shards: steps[s](probs, counts, col_masks, inv_eff), 5)
+          for shards in (1, VIRTUAL_SHARDS)}
+    log(f"phase 15 (d): sharded_em_step on {VIRTUAL_SHARDS} virtual shards, ({B}, {R}, {C}) "
+        f"float64: the multi-bucket kernel in {launches} launch(es), max abs {err:.3e} against "
+        f"the plain version (rtol {RTOL}), TPM rel "
+        f"{abs(float(tpm) - plain_tpm) / abs(plain_tpm):.3e}; {ms[VIRTUAL_SHARDS]:.3f} ms against "
+        f"{ms[1]:.3f} ms on one shard")
+    return err, ms
+
+
+def phase_virtual_shards(torch, device, cli, compare, datasets, bench, work, threads,
+                         main_stats, main_counts):
+    """Phase 15: the shard logic on VIRTUAL_SHARDS virtual shards of the
+    card with the real kernels ((a)-(e)), then (f) on real devices where
+    the host has more than one."""
+    from rpvg_tpu_torch.entry import dryrun_multidevice
+
+    t0 = time.perf_counter()
+    stats, counts, captured, same = phase_virtual_main_path(torch, device, cli, bench, work,
+                                                            threads, main_stats, main_counts)
+    pair_bitwise, pair_rel = phase_virtual_pair_scores(torch, device, captured)
+    if not same:
+        raise AssertionError(f"the main path on {VIRTUAL_SHARDS} virtual shards differs from "
+                             f"phase 4's bytes")
+    held = phase_virtual_configs(torch, device, cli, compare, datasets, work, threads)
+    giant, giant_held = phase_virtual_giant(torch, device, cli, compare, datasets["small"], work,
+                                            threads)
+    em_err, em_ms = phase_virtual_em_step(torch, device)
+    t1 = time.perf_counter()
+    report = dryrun_multidevice(VIRTUAL_SHARDS, device, virtual=True)
+    log(f"phase 15 (e): dryrun_multidevice({VIRTUAL_SHARDS}, cuda, virtual=True) in "
+        f"{time.perf_counter() - t1:.1f}s: the mesh step, the histogram, the batched dispatches and both "
+        f"regimes with -n 3 -b: {report}")
+    count = torch.cuda.device_count()
+    if count > 1:
+        prefix = os.path.join(work, "real_shards")
+        with_real = cli_argv(bench, prefix, "cuda", threads)
+        reset_counters()
+        rc, real_stats = cli.run_cli(with_real)
+        real_counts = read_counters()
+        if rc != 0 or real_stats["data_shards"] != count:
+            raise RuntimeError(f"the main path on {count} devices: rc {rc}")
+        check_routes("haplotype-transcripts", False, real_stats, real_counts)
+        real_held = hold_sharded_outputs("real devices", compare, prefix,
+                                         os.path.join(work, "bench"), (".txt", "_joint.txt"))
+        real_report = dryrun_multidevice(min(count, VIRTUAL_SHARDS), "cuda")
+        log(f"phase 15 (f): the main path on {count} devices in {real_stats['wall_seconds']:.2f}s, "
+            f"shard work {real_stats['shard_work']}, {real_held} against phase 4; "
+            f"dryrun_multidevice({min(count, VIRTUAL_SHARDS)}, cuda): {real_report}")
+    else:
+        log(f"phase 15 (f): {count} CUDA device visible: only virtual shards ran (a real "
+            f"multi-device run waits for a host with more than one)")
+    log(f"phase 15: {time.perf_counter() - t0:.1f}s in all")
+    return {"main_stats": stats, "main_counts": counts, "pair_bitwise": pair_bitwise,
+            "pair_rel": pair_rel, "configs": held, "giant_clusters": giant,
+            "giant_held": giant_held, "em_step_err": em_err, "em_step_ms": em_ms,
+            "dryrun": report}
+
+
 def main() -> int:
     import torch
 
@@ -1841,6 +2162,9 @@ def main() -> int:
                                   seed_panel=23, seed_reads=31, with_errors=True, tag="qual_"),
             "single_end": write_single_end_dataset(sim, work, num_genes=60, num_reads=5000,
                                                    seed_panel=23, seed_reads=37),
+            "long_reads": write_single_end_dataset(sim, work, num_genes=60, num_reads=2000,
+                                                   seed_panel=23, seed_reads=41,
+                                                   read_length=400, tag="lr_"),
         }
         phase_cli_configs(cli, compare_estimate_files, datasets, work, threads)
         phase_gibbs_cli(cli, compare, small, work, threads)
@@ -1848,7 +2172,8 @@ def main() -> int:
         # Phase 4: the main path at bench scale.
         t0 = time.perf_counter()
         bench = write_dataset(sim, rpa, alignments, work,
-                              num_genes=1286, num_pairs=PAIRS, seed_panel=5, seed_reads=17)
+                              num_genes=1286, num_pairs=PAIRS, seed_panel=5, seed_reads=17,
+                              tag="bench_")
         log(f"phase 4: synthesised {PAIRS} pairs over 1286 genes in "
             f"{time.perf_counter() - t0:.1f}s (set-up, not timed below)")
         # Phase D's tasks are captured by wrapping the kernel's entry here.
@@ -1866,6 +2191,7 @@ def main() -> int:
                                            "haplotype-transcripts", info=True)
         finally:
             em_cuda.em_fixed_point = launch
+        main_counts = counts
         ragged_launches = main_path_launches = counts["ragged_launches"]
         main_em = phase_main_path_em(torch, device, captured)
 
@@ -1969,6 +2295,10 @@ def main() -> int:
         )
         phase_multiprocess(bench, work, threads, main_stats, os.path.join(work, "bench"))
 
+        # Phase 15: the shard logic on virtual shards of the card.
+        virtual = phase_virtual_shards(torch, device, cli, compare, datasets, bench, work,
+                                       threads, main_stats, main_counts)
+
     # Phases 7 and 8: the two Gibbs samplers; 11 and 12: the ploidy-k kernels.
     gibbs = phase_gibbs_kernel(torch, device, gibbs_captured)
     posterior = phase_posterior_kernel(torch, device, posterior_captured)
@@ -1995,6 +2325,9 @@ def main() -> int:
             "main_path_tasks_ms": main_em["ms"],
             "main_path_tasks_bound_ms": main_em["bound_ms"],
             "main_path_slowest_task_ms": main_em["slowest_task_ms"],
+            "virtual_shards": VIRTUAL_SHARDS,
+            "virtual_shards_main_path_launches": virtual["main_counts"]["ragged_launches"],
+            "virtual_shards_main_path_tasks_per_shard": virtual["main_stats"]["shard_work"]["D"],
         },
         {
             "name": em_cuda.KERNEL_NAME,
@@ -2030,6 +2363,8 @@ def main() -> int:
             "launches_per_main_path_run": fused_launches,
             "main_path_run": f"transcripts -f, RPVG_TPU_FUSE_EM=1 ({fused_route_tasks} tasks)",
             "slowest_task_ms": fused_em["slowest_task_ms"],
+            "sharded_em_step_max_abs_err": virtual["em_step_err"],
+            "sharded_em_step_ms": virtual["em_step_ms"],
         },
         {
             "name": gibbs_cuda.KERNEL_NAME,

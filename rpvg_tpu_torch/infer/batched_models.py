@@ -1,5 +1,5 @@
 """Whole-population batched inference of the four models on one device
-(counterpart of ``rpvg_tpu/infer/batched_models.py``).
+and its data shards (counterpart of ``rpvg_tpu/infer/batched_models.py``).
 
 ``haplotype-transcripts`` (collapsed groups, any ploidy k) is the staged
 route of ``batched_haplotype_transcripts`` (``RPVG_TPU_FUSED_NESTED=0``
@@ -74,6 +74,7 @@ from rpvg_tpu_torch.infer.posteriors import (
     path_group_posteriors_gibbs_batched,
 )
 from rpvg_tpu_torch.infer.readcount_gibbs import run_batched_gibbs
+from rpvg_tpu_torch.parallel import autoshard
 
 PHASES = (
     ("A", "grouped matrices"),
@@ -144,22 +145,38 @@ def _fallback_since(before: Dict[str, float]) -> Dict:
 
 
 class _PhaseClock:
-    """Host-clock phase times; on CUDA each boundary waits for the
-    device so a phase is charged its own device work."""
+    """Host-clock phase times; on CUDA each boundary waits for every data
+    shard's device so a phase is charged all of its device work.  Also
+    keeps, per phase with device dispatches, the tasks or clusters each
+    shard took (``autoshard.take_shard_work``)."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.seconds: Dict[str, float] = {}
+        self.shard_work: Dict[str, List[int]] = {}
         self.verbose = bool(os.environ.get("RPVG_TPU_PHASE_TIMING"))
+        autoshard.take_shard_work()
         self.t0 = time.perf_counter()
 
     def lap(self, key: str, label: str) -> None:
         synchronize(self.device)
         now = time.perf_counter()
         self.seconds[key] = now - self.t0
+        work = autoshard.take_shard_work()
+        if work:
+            self.shard_work[key] = work
         if self.verbose:
             print(f"  [timing]   {key} {label}: {self.seconds[key]:.2f}s", file=sys.stderr)
         self.t0 = now
+
+    def report(self) -> Dict:
+        """``phase_seconds``; ``data_shards``, the shard count of the
+        run's device; ``shard_work``, per phase the items each shard took."""
+        return {
+            "phase_seconds": self.seconds,
+            "data_shards": autoshard.num_data_shards(self.device),
+            "shard_work": self.shard_work,
+        }
 
 
 def batched_haplotype_transcripts(
@@ -306,7 +323,7 @@ def batched_haplotype_transcripts(
         device, clock,
     )
     return {
-        "phase_seconds": clock.seconds,
+        **clock.report(),
         "scored_clusters": len(meta),
         "group_engine": engine,
         **fallback,
@@ -430,7 +447,7 @@ def batched_haplotype_transcripts_independent(
         device, clock, np_rng_of=np_rng_of,
     )
     return {
-        "phase_seconds": clock.seconds,
+        **clock.report(),
         "scored_clusters": len(jobs),
         "group_engine": engine,
         **fallback,
@@ -779,7 +796,7 @@ def batched_transcripts(
     if gibbs_jobs:
         clock.lap("D2", f"batched Gibbs ({gibbs_jobs} jobs)")
     clock.lap("E", "abundances")
-    return {"phase_seconds": clock.seconds, "em_tasks": len(inputs), "gibbs_jobs": gibbs_jobs}
+    return {**clock.report(), "em_tasks": len(inputs), "gibbs_jobs": gibbs_jobs}
 
 
 def supports_batched_strains(estimator) -> bool:
@@ -835,7 +852,7 @@ def batched_strains(
     for ci, task, (abundances, noise_count) in zip(meta, tasks, em_results):
         estimator.apply_cover_result(cluster_data[ci][0], task, abundances, noise_count)
     clock.lap("E", "cover abundances")
-    return {"phase_seconds": clock.seconds, "em_tasks": len(tasks), "gibbs_jobs": gibbs_jobs}
+    return {**clock.report(), "em_tasks": len(tasks), "gibbs_jobs": gibbs_jobs}
 
 
 def supports_batched_haplotypes(estimator) -> bool:
@@ -886,7 +903,7 @@ def batched_haplotypes(
         est.posteriors = list(map(float, group_posteriors))
     clock.lap("E", "posteriors")
     return {
-        "phase_seconds": clock.seconds,
+        **clock.report(),
         "scored_clusters": len(meta),
         "group_engine": engine,
         **_fallback_since(fallback),

@@ -14,8 +14,12 @@ device state:
   launch of the multi-bucket kernel (``ops/em_fused_cuda.py``);
   :func:`gather_em_device` folds the results.
 
-Either way CUDA tensors go to a kernel and CPU tensors to its plain
-version, and sub-threshold mass is folded on the host, returning the
+Both split the tasks over the data shards of the device
+(``parallel/autoshard.py``): the ragged route in contiguous ranges, one
+task set and one kernel call per shard, the multi-bucket route each
+padded chunk whose batch divides the shard count.  Either way CUDA
+tensors go to a kernel and CPU tensors to its plain version, and
+sub-threshold mass is folded on the host, returning the
 ``(path read counts, noise count)`` contract of ``gather_em_device``.
 On the CPU, :func:`run_batched_em` takes the JAX package's own CPU
 route when the native library is loaded: :func:`run_native_em` (a
@@ -25,6 +29,7 @@ Gibbs chains started from them draw the same samples.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +39,7 @@ from rpvg_tpu_torch.constants import MIN_EM_ABUNDANCE
 from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
 from rpvg_tpu_torch.ops.em_cuda import RaggedTasks
 from rpvg_tpu_torch.ops.em_fused_cuda import Block
+from rpvg_tpu_torch.parallel import autoshard
 
 # Bytes of padded state (probabilities, counts, masks in float64) one
 # launch of the multi-bucket kernel stages at most when buckets share it
@@ -252,16 +258,32 @@ def run_batched_em(
     return run_batched_em_packed(cluster_inputs, max_em_its, max_rel_em_conv, device)[0]
 
 
+@dataclass
+class PackedShards:
+    """The ragged task sets :func:`run_batched_em_packed` left on the
+    devices, one per data shard that took tasks: ``parts[k]`` holds the
+    caller's tasks ``starts[k]`` to ``starts[k] + parts[k].n_tasks``, on
+    data shard ``shards[k]``."""
+
+    parts: List[RaggedTasks]
+    starts: List[int]
+    shards: List[int]
+
+
 def run_batched_em_packed(
     cluster_inputs: Sequence[Tuple[np.ndarray, np.ndarray]],
     max_em_its: int,
     max_rel_em_conv: float,
     device: torch.device,
-) -> Tuple[List[Tuple[np.ndarray, float]], Optional[RaggedTasks]]:
-    """:func:`run_batched_em`, and the ragged task set it packed on the
-    device for the ragged kernel (None on the native or multi-bucket
+) -> Tuple[List[Tuple[np.ndarray, float]], Optional[PackedShards]]:
+    """:func:`run_batched_em`, and the ragged task sets it packed on the
+    devices for the ragged kernel (None on the native or multi-bucket
     route or with no tasks), so that a later phase reads the same
-    matrices in place.  On the CPU the native kernel runs
+    matrices in place.  The tasks split over the data shards of
+    ``device`` in contiguous ranges balanced by R * C
+    (:func:`~rpvg_tpu_torch.parallel.autoshard.shard_tasks`), one kernel
+    call per shard, every shard launched before any is read; the results
+    come back in task order.  On the CPU the native kernel runs
     (:func:`run_native_em`, as in the JAX package, so a CPU run is
     bitwise the JAX package's) unless ``RPVG_TPU_NATIVE_EM=0`` or the
     multi-bucket route is asked for; then the kernels' plain versions."""
@@ -276,9 +298,22 @@ def run_batched_em_packed(
         )
         gather_em_device(pending, cluster_inputs, results)
         return results, None
-    tasks = pack_ragged(cluster_inputs, device)
-    fracs, _ = em_cuda.em_fixed_point(tasks, max_em_its, max_rel_em_conv)
-    return fold_fractions(fracs, tasks, cluster_inputs), tasks
+    devices = autoshard.data_devices(device)
+    ranges = autoshard.shard_tasks([probs.shape for probs, _ in cluster_inputs], len(devices))
+    packed = PackedShards([], [], [])
+    launched = []
+    for shard, ((lo, hi), shard_device) in enumerate(zip(ranges, devices)):
+        if hi > lo:
+            tasks = pack_ragged(cluster_inputs[lo:hi], shard_device)
+            packed.parts.append(tasks)
+            packed.starts.append(lo)
+            packed.shards.append(shard)
+            launched.append(em_cuda.em_fixed_point(tasks, max_em_its, max_rel_em_conv)[0])
+    autoshard.record([hi - lo for lo, hi in ranges])
+    results = []
+    for start, tasks, fracs in zip(packed.starts, packed.parts, launched):
+        results.extend(fold_fractions(fracs, tasks, cluster_inputs[start : start + tasks.n_tasks]))
+    return results, packed
 
 
 def fold_fractions(
@@ -362,6 +397,20 @@ def plan_em_groups(
     return groups
 
 
+def _block_arrays(cluster_inputs, chunk, R_pad: int, C_pad: int):
+    B = len(chunk)
+    probs_pad = np.zeros((B, R_pad, C_pad), dtype=np.float64)
+    counts_pad = np.zeros((B, R_pad), dtype=np.float64)
+    col_masks = np.zeros((B, C_pad), dtype=np.float64)
+    for b, idx in enumerate(chunk):
+        probs, counts = cluster_inputs[idx]
+        R, C = probs.shape
+        probs_pad[b, :R, :C] = probs
+        counts_pad[b, :R] = counts
+        col_masks[b, :C] = 1.0
+    return probs_pad, counts_pad, col_masks
+
+
 def build_block(
     cluster_inputs: Sequence[Tuple[np.ndarray, np.ndarray]],
     chunk: Sequence[int],
@@ -373,17 +422,9 @@ def build_block(
     C_pad), counts (B, R_pad), col_masks (B, C_pad))`` block on
     ``device`` (``build_block`` of ``rpvg_tpu/infer/batching.py:336-346``):
     padded rows get zero counts, padded columns a zero mask."""
-    B = len(chunk)
-    probs_pad = np.zeros((B, R_pad, C_pad), dtype=np.float64)
-    counts_pad = np.zeros((B, R_pad), dtype=np.float64)
-    col_masks = np.zeros((B, C_pad), dtype=np.float64)
-    for b, idx in enumerate(chunk):
-        probs, counts = cluster_inputs[idx]
-        R, C = probs.shape
-        probs_pad[b, :R, :C] = probs
-        counts_pad[b, :R] = counts
-        col_masks[b, :C] = 1.0
-    return tuple(torch.from_numpy(a).to(device) for a in (probs_pad, counts_pad, col_masks))
+    return tuple(
+        torch.from_numpy(a).to(device) for a in _block_arrays(cluster_inputs, chunk, R_pad, C_pad)
+    )
 
 
 def dispatch_em_device(
@@ -394,19 +435,33 @@ def dispatch_em_device(
     device: torch.device,
     max_bucket_rows: int = 4096,
 ) -> List[Tuple[List[int], torch.Tensor]]:
-    """Launch the indexed tasks' EM on ``device`` without waiting: one
-    :func:`em_fused_cuda.em_fixed_point_padded` call per group of
-    :func:`plan_em_groups`, each group's blocks built right before its
-    launch.  Returns (chunk indices, (B, C) fractions) per chunk for
-    :func:`gather_em_device`."""
+    """Launch the indexed tasks' EM on the data shards of ``device``
+    without waiting: per group of :func:`plan_em_groups`, each chunk's
+    block split over the shards when its batch divides their count, else
+    whole on the first (:func:`~rpvg_tpu_torch.parallel.autoshard.
+    shard_batched`), then one :func:`em_fused_cuda.em_fixed_point_padded`
+    call per shard on that shard's blocks.  Returns (chunk indices, (B, C)
+    fractions) per shard's part of a chunk for :func:`gather_em_device`."""
+    devices = autoshard.data_devices(device)
     pending = []
+    per_shard = [0] * len(devices)
     for group in plan_em_groups(cluster_inputs, indices, max_bucket_rows):
-        blocks = [
-            build_block(cluster_inputs, chunk, R_pad, C_pad, device)
-            for chunk, R_pad, C_pad in group
-        ]
-        fracs, _ = em_fused_cuda.em_fixed_point_padded(blocks, max_em_its, max_rel_em_conv)
-        pending.extend((chunk, block_fracs) for (chunk, _, _), block_fracs in zip(group, fracs))
+        shard_blocks = [[] for _ in devices]
+        for chunk, R_pad, C_pad in group:
+            parts = autoshard.shard_batched(
+                devices, *_block_arrays(cluster_inputs, chunk, R_pad, C_pad)
+            )
+            size = len(chunk) // len(parts)
+            for s, block in enumerate(parts):
+                shard_blocks[s].append((list(chunk[s * size : (s + 1) * size]), block))
+        for s, items in enumerate(shard_blocks):
+            if items:
+                fracs, _ = em_fused_cuda.em_fixed_point_padded(
+                    [block for _, block in items], max_em_its, max_rel_em_conv
+                )
+                pending.extend((members, block_fracs) for (members, _), block_fracs in zip(items, fracs))
+                per_shard[s] += sum(len(members) for members, _ in items)
+    autoshard.record(per_shard)
     return pending
 
 

@@ -31,10 +31,12 @@ def _masked_em_step(probs, counts, abundances, total_count, col_mask):
     """One EM iteration for a padded batch.
 
     q-formulation: new_c = a_c * (sum_r counts_r / rowsum_r * P_rc) /
-    max(total, 1) — two batched matvecs, never the (R, C) posterior
-    temporaries of the textbook step."""
+    max(total, 1).  Each cluster's sums run in an order that does not
+    depend on the batch it is in (a batched matvec with the vector on
+    the right does on the CPU), so a cluster's result is the same however
+    the clusters are batched or sharded."""
     a = abundances * col_mask
-    row_sums = torch.bmm(probs, a.unsqueeze(-1)).squeeze(-1)
+    row_sums = (probs * a.unsqueeze(1)).sum(dim=-1)
     positive = row_sums > 0
     q = torch.where(positive, counts / torch.where(positive, row_sums, 1.0), 0.0)
     t = torch.bmm(q.unsqueeze(1), probs).squeeze(1)

@@ -16,8 +16,15 @@
   pair-score sampler at k = 2 (``csrc/gibbs_posterior.cu``) and the
   k-slot sampler at every other k (``csrc/gibbs_posterior_k.cu``).
 
-The mesh-sharded giant-cluster path and the host/device hybrid split of
-the JAX package are not ported (ROADMAP queue 1, item 15).
+Every device dispatch splits over the data shards of
+``parallel/autoshard.py``: the padded pair-score chunks whole, each on
+the least loaded shard, the group scorer's and the samplers' clusters in
+contiguous ranges.  A giant cluster whose (R, P, P) tensor
+passes the element guard but fits the guard times the shard count is
+scored with its pair matrix's rows split over the shards
+(:func:`_pair_scores_sharded`, ``parallel/mesh.py``), as in the JAX
+package; with one shard it is scored in column blocks.  The host/device
+hybrid split of the JAX package is not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from rpvg_tpu_torch.constants import (
 )
 from rpvg_tpu_torch.infer.matrices import calc_path_log_frequencies
 from rpvg_tpu_torch.mathutils import num_permutations
+from rpvg_tpu_torch.parallel import autoshard
 
 # Clusters whose pair or group scores were computed, by device type,
 # since the last reset (a run can show where phase B ran).  Clusters of
@@ -49,6 +57,10 @@ SCORED_CLUSTERS: Dict[str, int] = {"cuda": 0, "cpu": 0}
 # Clusters whose enumeration exceeded _FULL_ENUM_GROUP_LIMIT and ran the
 # per-cluster host engine, and its seconds, since the last reset.
 HOST_ENUMERATION: Dict[str, float] = {"clusters": 0, "seconds": 0.0}
+
+# Giant clusters scored with their pair rows split over the data shards
+# (_pair_scores_sharded), since the last reset.
+SHARDED_PAIR_CLUSTERS = 0
 
 # Memory guard: (R, P, P) tensors above this many elements score in
 # column blocks (the reference's giant-cluster branch-and-bound is the
@@ -111,13 +123,59 @@ def _diploid_pair_scores(probs, noise, counts, log_freqs):
     return pair_ll + log_freqs[:, None] + log_freqs[None, :]
 
 
+def _read_sum(counts, logs):
+    """sum_r counts[r] * logs[r, i, j], as the last row of a running sum
+    over r: on the CPU each element is added in r order whatever the
+    block's shape (a reduction's vector layout, and einsum's choice of
+    product, follow the shape), so column blocks and row stripes of one
+    cluster give the same bits.  Overwrites ``logs``."""
+    return logs.mul_(counts[:, None, None]).cumsum_(dim=0)[-1]
+
+
 def _diploid_pair_scores_block(probs, noise, counts, log_freqs, half_block, block_log_freqs):
     """Column block of the pair matrix: (P, J) scores against
     half_block (R, J)."""
     half = probs * 0.5
     group = noise[:, None, None] + half[:, :, None] + half_block[:, None, :]
-    pair_ll = torch.einsum("r,rij->ij", counts, _log_or_neg_inf(group))
+    pair_ll = _read_sum(counts, _log_or_neg_inf(group))
     return pair_ll + log_freqs[:, None] + block_log_freqs[None, :]
+
+
+def _diploid_pair_scores_rows(probs, noise, counts, log_freqs, half_rows, row_log_freqs):
+    """Row stripe of the pair matrix: (I, P) scores of the paths of
+    half_rows (R, I) against every path, each element the same bits as
+    in :func:`_diploid_pair_scores_block`."""
+    half = probs * 0.5
+    group = noise[:, None, None] + half_rows[:, :, None] + half[:, None, :]
+    pair_ll = _read_sum(counts, _log_or_neg_inf(group))
+    return pair_ll + row_log_freqs[:, None] + log_freqs[None, :]
+
+
+def _pair_scores_sharded(probs, noise, counts, log_freqs, device: torch.device):
+    """(P, P) pair scores of one giant cluster with the rows of the pair
+    matrix split over the data shards of ``device``
+    (``parallel/mesh.sharded_diploid_scores``), so each shard holds
+    1/n of the (R, P, P) tensor.  None when there is one shard or the
+    tensor passes the element guard times the shard count (the JAX
+    package's condition, ``rpvg_tpu/infer/posteriors.py:140-145``)."""
+    global SHARDED_PAIR_CLUSTERS
+    from rpvg_tpu_torch.parallel.mesh import make_mesh, sharded_diploid_scores
+
+    devices = autoshard.data_devices(device)
+    n = len(devices)
+    R, P = probs.shape
+    if n <= 1 or R * P * P > _pair_tensor_limit() * n:
+        return None
+    P_pad = -(-P // n) * n
+    probs_pad = np.zeros((R, P_pad), dtype=np.float64)
+    probs_pad[:, :P] = probs
+    freqs_pad = np.full(P_pad, -np.inf)
+    freqs_pad[:P] = log_freqs
+    scores = sharded_diploid_scores(make_mesh(devices, data=1, model=n))(
+        probs_pad, noise, counts, freqs_pad
+    )
+    SHARDED_PAIR_CLUSTERS += 1
+    return scores.cpu().numpy()[:P, :P]
 
 
 def _diploid_pair_scores_batched(probs, noise, counts, log_freqs):
@@ -130,9 +188,14 @@ def _diploid_pair_scores_batched(probs, noise, counts, log_freqs):
 
 def _pair_scores_blocked(probs, noise, counts, log_freqs, device: torch.device):
     """(P, P) pair scores of one cluster on ``device``: one dense call
-    when (R, P, P) fits the element guard, else column blocks of a
-    fixed width."""
+    when (R, P, P) fits the element guard, else its rows split over the
+    data shards (:func:`_pair_scores_sharded`) where that fits, else
+    column blocks of a fixed width."""
     R, P = probs.shape
+    if R * P * P > _pair_tensor_limit():
+        sharded = _pair_scores_sharded(probs, noise, counts, log_freqs, device)
+        if sharded is not None:
+            return sharded
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(device)  # noqa: E731
     probs_dev = to_dev(probs)
     noise_dev = to_dev(noise)
@@ -237,10 +300,15 @@ def _bucket_plan(cluster_inputs):
     return buckets, giant_idx
 
 
-def _score_chunks(cluster_inputs, buckets, device: torch.device):
-    """Yield (cluster indices, (B, P_pad, P_pad) pair scores on
-    ``device``) per chunk of at most 2**24 padded pair-tensor elements
-    of each bucket."""
+def _score_chunks(cluster_inputs, buckets, devices: Sequence[torch.device]):
+    """Yield (cluster indices, (B, P_pad, P_pad) pair scores on a device,
+    shard index) per chunk of at most 2**24 padded pair-tensor elements
+    of each bucket, each chunk whole on the shard with the least padded
+    work so far.  A chunk is not split: cuBLAS may pick another product
+    for another batch count (a last-bit difference measured on an H100),
+    and a whole chunk keeps every cluster's bits, whatever the shard
+    count."""
+    load = [0] * len(devices)
     for (R_pad, P_pad), indices in buckets.items():
         max_batch = max(1, _BATCH_ELEMENT_LIMIT // max(1, R_pad * P_pad * P_pad))
         for chunk_start in range(0, len(indices), max_batch):
@@ -257,6 +325,9 @@ def _score_chunks(cluster_inputs, buckets, device: torch.device):
                 noise_pad[b, :R] = noise
                 counts_pad[b, :R] = counts
                 log_freqs_pad[b, :P] = calc_path_log_frequencies(path_counts)
+            shard = load.index(min(load))
+            load[shard] += B * R_pad * P_pad * P_pad
+            device = devices[shard]
             pair_ll_dev = _diploid_pair_scores_batched(
                 torch.from_numpy(probs_pad).to(device),
                 torch.from_numpy(noise_pad).to(device),
@@ -264,7 +335,7 @@ def _score_chunks(cluster_inputs, buckets, device: torch.device):
                 torch.from_numpy(log_freqs_pad).to(device),
             )
             _count_scored(pair_ll_dev.device, B)
-            yield chunk, pair_ll_dev
+            yield chunk, pair_ll_dev, shard
 
 
 def diploid_posteriors_batched(
@@ -279,18 +350,23 @@ def diploid_posteriors_batched(
     powers of four, paths to powers of two) and scored a chunk of at
     most 2**24 padded pair-tensor elements at a time; a cluster whose
     padded (R, P, P) tensor exceeds the giant-cluster guard is scored
-    alone in column blocks.  Returns per cluster (group_sets,
-    posteriors)."""
+    alone, its pair rows split over the data shards or in column blocks.
+    The chunks spread over the data shards of ``device``.
+    Returns per cluster (group_sets, posteriors)."""
     buckets, giant_idx = _bucket_plan(cluster_inputs)
     results = [None] * len(cluster_inputs)
     select_jobs = []  # (idx, (P, P) score matrix)
-    for chunk, pair_ll_dev in _score_chunks(cluster_inputs, buckets, device):
+    devices = autoshard.data_devices(device)
+    per_shard = [0] * len(devices)
+    for chunk, pair_ll_dev, shard in _score_chunks(cluster_inputs, buckets, devices):
+        per_shard[shard] += len(chunk)
         pair_ll = pair_ll_dev.cpu().numpy()
         for b, idx in enumerate(chunk):
             P = cluster_inputs[idx][0].shape[1]
             select_jobs.append((idx, pair_ll[b, :P, :P]))
+    autoshard.record(per_shard)
 
-    # Giant clusters: per-cluster blocked scoring.
+    # Giant clusters: per-cluster sharded or blocked scoring.
     for idx in giant_idx:
         probs, noise, counts, path_counts = cluster_inputs[idx]
         results[idx] = path_group_posteriors_diploid(
@@ -451,22 +527,37 @@ def full_posteriors_batched(cluster_inputs, group_size: int, device: torch.devic
     if not scored:
         return results
 
-    clusters = group_scores_cuda.make_clusters(
-        [cluster_inputs[ci][:3] for ci in scored], group_size, device
-    )
-    scores = group_scores_cuda.group_scores(clusters).cpu().numpy()
-    _count_scored(device, len(scored))
-    out_offsets = clusters.host["out_offsets"]
-    for b, ci in enumerate(scored):
-        probs, _, _, path_counts = cluster_inputs[ci]
-        groups = group_scores_cuda.group_table(probs.shape[1], group_size)
-        log_freqs = calc_path_log_frequencies(path_counts)
-        ll = (
-            scores[out_offsets[b] : out_offsets[b + 1]]
-            + log_freqs[groups].sum(axis=1)
-            + _log_permutations_rows(groups)
-        )
-        results[ci] = (groups.tolist(), _normalize_log_posteriors(ll))
+    # Contiguous ranges of the scored clusters per data shard, balanced by
+    # rows times groups; every shard launched before any is read.
+    devices = autoshard.data_devices(device)
+    work = [
+        (cluster_inputs[ci][0].shape[0],
+         math.comb(cluster_inputs[ci][0].shape[1] + group_size - 1, group_size))
+        for ci in scored
+    ]
+    ranges = autoshard.shard_tasks(work, len(devices))
+    launched = []
+    for (lo, hi), shard_device in zip(ranges, devices):
+        if hi > lo:
+            clusters = group_scores_cuda.make_clusters(
+                [cluster_inputs[ci][:3] for ci in scored[lo:hi]], group_size, shard_device
+            )
+            launched.append((scored[lo:hi], clusters, group_scores_cuda.group_scores(clusters)))
+            _count_scored(shard_device, hi - lo)
+    autoshard.record([hi - lo for lo, hi in ranges])
+    for members, clusters, scores in launched:
+        scores = scores.cpu().numpy()
+        out_offsets = clusters.host["out_offsets"]
+        for b, ci in enumerate(members):
+            probs, _, _, path_counts = cluster_inputs[ci]
+            groups = group_scores_cuda.group_table(probs.shape[1], group_size)
+            log_freqs = calc_path_log_frequencies(path_counts)
+            ll = (
+                scores[out_offsets[b] : out_offsets[b + 1]]
+                + log_freqs[groups].sum(axis=1)
+                + _log_permutations_rows(groups)
+            )
+            results[ci] = (groups.tolist(), _normalize_log_posteriors(ll))
     return results
 
 
@@ -695,7 +786,7 @@ def posterior_gibbs_jobs(cluster_inputs, rng_keys, device: torch.device):
     offsets = np.zeros(n, dtype=np.int64)
     strides = np.zeros(n, dtype=np.int64)
     base = 0
-    for chunk, pair_ll_dev in _score_chunks(cluster_inputs, buckets, device):
+    for chunk, pair_ll_dev, _ in _score_chunks(cluster_inputs, buckets, (device,)):
         P_pad = pair_ll_dev.shape[-1]
         pieces.append(pair_ll_dev.reshape(-1))
         for b, idx in enumerate(chunk):
@@ -775,19 +866,42 @@ def path_group_posteriors_gibbs_batched(cluster_inputs, group_size, rng_keys, de
     pair scores are computed on the card and sampled there by
     ``csrc/gibbs_posterior.cu``.  Every other group size runs the k-slot
     sampler: ``csrc/gibbs_posterior_k.cu`` on ``cuda``, its plain version
-    on ``cpu`` (the JAX package has no native sampler there)."""
+    on ``cpu`` (the JAX package has no native sampler there).  The
+    clusters split over the data shards of ``device``."""
     from rpvg_tpu_torch.ops import posterior_gibbs_cuda, posterior_gibbs_k_cuda
 
     if not cluster_inputs:
         return []
-    if group_size != 2:
-        jobs = posterior_gibbs_k_jobs(cluster_inputs, group_size, rng_keys, device)
-        samples = posterior_gibbs_k_cuda.posterior_gibbs_k(jobs).cpu().numpy()
-        return _group_sample_posteriors(samples, jobs.host, group_size)
-    if device.type == "cpu":
+    if group_size == 2 and device.type == "cpu":
         native = _posterior_gibbs_native(cluster_inputs, rng_keys)
         if native is not None:
             return native
-    jobs = posterior_gibbs_jobs(cluster_inputs, rng_keys, device)
-    samples = posterior_gibbs_cuda.posterior_gibbs(jobs).cpu().numpy()
-    return _dedup_pairs(samples, jobs.host["out_offsets"], jobs.host["n_chains"], jobs.host["n_its"])
+    # Contiguous ranges of clusters per data shard, balanced by rows times
+    # the chain steps' path scans; every shard launched before any is read.
+    devices = autoshard.data_devices(device)
+    work = []
+    for probs, _, _, _ in cluster_inputs:
+        chains, burn, its = gibbs_iteration_counts(group_size, probs.shape[1])
+        work.append((probs.shape[0], chains * (burn + its) * probs.shape[1]))
+    ranges = autoshard.shard_tasks(work, len(devices))
+    launched = []
+    for (lo, hi), shard_device in zip(ranges, devices):
+        if hi == lo:
+            continue
+        if group_size != 2:
+            jobs = posterior_gibbs_k_jobs(cluster_inputs[lo:hi], group_size, rng_keys[lo:hi],
+                                          shard_device)
+            launched.append((jobs, posterior_gibbs_k_cuda.posterior_gibbs_k(jobs)))
+        else:
+            jobs = posterior_gibbs_jobs(cluster_inputs[lo:hi], rng_keys[lo:hi], shard_device)
+            launched.append((jobs, posterior_gibbs_cuda.posterior_gibbs(jobs)))
+    autoshard.record([hi - lo for lo, hi in ranges])
+    results = []
+    for jobs, samples in launched:
+        samples = samples.cpu().numpy()
+        if group_size != 2:
+            results.extend(_group_sample_posteriors(samples, jobs.host, group_size))
+        else:
+            results.extend(_dedup_pairs(samples, jobs.host["out_offsets"], jobs.host["n_chains"],
+                                        jobs.host["n_its"]))
+    return results

@@ -24,7 +24,6 @@ and Philox), so the devices agree in distribution, not draw for draw.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -139,18 +138,24 @@ def run_batched_gibbs(
     thin_its: int = 25,
     gamma: float = 1.0,
     device: torch.device = torch.device("cpu"),
-    packed: Optional[Tuple[RaggedTasks, Sequence[int]]] = None,
+    packed=None,
 ):
     """Sample read-count posteriors over many jobs on ``device``.
 
     cluster_inputs: per job (noise-normalised probs (R, P+1), counts
     (R,), abundances (P,), noise_count, total_count); rng_keys: one
     threefry key per job; num_samples: one count for all jobs or one per
-    job.  ``packed`` (CUDA only): the task set phase D already holds on
-    the card and each job's task index in it, so the matrices are not
-    uploaded again.  Returns per job (noise_samples (S,), path_samples
-    (S, P))."""
-    from rpvg_tpu_torch.infer.batching import native_em_available, pack_ragged
+    job.  ``packed``: the task sets phase D already holds on the devices
+    (a :class:`~rpvg_tpu_torch.infer.batching.PackedShards`, or one
+    :class:`RaggedTasks`) and each job's task index in the caller's task
+    list, so the matrices are not uploaded again.  The jobs run on the
+    data shards of ``device``: each job on the shard that holds its task
+    (with ``packed``) or in contiguous ranges balanced by R * C, one
+    sampler launch set per shard, task ids local to the shard; a job's
+    seed stays its own, so its draws do not depend on the split.  Returns
+    per job (noise_samples (S,), path_samples (S, P))."""
+    from rpvg_tpu_torch.infer.batching import PackedShards, native_em_available, pack_ragged
+    from rpvg_tpu_torch.parallel import autoshard
 
     if not cluster_inputs:
         return []
@@ -162,20 +167,43 @@ def run_batched_gibbs(
         if np.ndim(num_samples) == 0
         else np.asarray(num_samples, dtype=np.int64)
     )
+    shards = []  # (shard index, job indices, task set, task ids local to it)
     if packed is None:
-        tasks = pack_ragged([(item[0], item[1]) for item in cluster_inputs], device)
-        task_ids = np.arange(n)
+        devices = autoshard.data_devices(device)
+        shapes = [item[0].shape for item in cluster_inputs]
+        ranges = autoshard.shard_tasks(shapes, len(devices))
+        for shard, ((lo, hi), shard_device) in enumerate(zip(ranges, devices)):
+            if hi > lo:
+                tasks = pack_ragged([(item[0], item[1]) for item in cluster_inputs[lo:hi]],
+                                    shard_device)
+                shards.append((shard, np.arange(lo, hi), tasks, np.arange(hi - lo)))
     else:
-        tasks, task_ids = packed
-    jobs = gibbs_cuda.make_jobs(
-        tasks, task_ids, [initial_fractions(item) for item in cluster_inputs],
-        [prng.key_seed(key) for key in rng_keys], samples,
-    )
-    out = gibbs_cuda.gibbs_read_counts(jobs, thin_its, gamma).cpu().numpy()
-    offsets = jobs.out_offsets.cpu().numpy()
-    results = []
-    for i, item in enumerate(cluster_inputs):
-        C = item[0].shape[1]
-        fracs = out[offsets[i] : offsets[i + 1]].reshape(int(samples[i]), C)
-        results.append(_fold_low_abundance(fracs, item[4]))
+        sets, task_ids = packed
+        if isinstance(sets, RaggedTasks):
+            sets = PackedShards([sets], [0], [0])
+        task_ids = np.asarray(task_ids, dtype=np.int64)
+        part_of = np.searchsorted(np.asarray(sets.starts), task_ids, side="right") - 1
+        for k, (start, tasks, shard) in enumerate(zip(sets.starts, sets.parts, sets.shards)):
+            members = np.flatnonzero(part_of == k)
+            if members.size:
+                shards.append((shard, members, tasks, task_ids[members] - start))
+    launched = []
+    per_shard = [0] * (1 + max(shard for shard, _, _, _ in shards))
+    for shard, members, tasks, local_ids in shards:
+        jobs = gibbs_cuda.make_jobs(
+            tasks, local_ids, [initial_fractions(cluster_inputs[j]) for j in members],
+            [prng.key_seed(rng_keys[j]) for j in members], samples[members],
+        )
+        launched.append((members, jobs, gibbs_cuda.gibbs_read_counts(jobs, thin_its, gamma)))
+        per_shard[shard] = members.size
+    autoshard.record(per_shard)
+    results = [None] * n
+    for members, jobs, out in launched:
+        out = out.cpu().numpy()
+        offsets = jobs.out_offsets.cpu().numpy()
+        for b, j in enumerate(members):
+            item = cluster_inputs[j]
+            C = item[0].shape[1]
+            fracs = out[offsets[b] : offsets[b + 1]].reshape(int(samples[j]), C)
+            results[j] = _fold_low_abundance(fracs, item[4])
     return results

@@ -29,6 +29,7 @@ import torch
 
 from rpvg_tpu_torch.clustering import PathClusters, split_by_bounds
 from rpvg_tpu_torch.constants import FRAG_LENGTH_MIN_MAPQ
+from rpvg_tpu_torch.device import peak_memory_mib
 from rpvg_tpu_torch.fragments import FragmentLengthDist
 from rpvg_tpu_torch.graph import Graph, load_graph
 from rpvg_tpu_torch.infer.estimates import PathClusterEstimates
@@ -1365,6 +1366,7 @@ def run_inference_phases(
         for writer in (prob_writer, gibbs_writer):
             if writer is not None:
                 writer.publish()
+        peaks = peak_memory_mib(device)
     except BaseException:
         # Failure: no partial outputs under the real filenames.
         for writer in (prob_writer, gibbs_writer):
@@ -1388,6 +1390,10 @@ def run_inference_phases(
         # thread, then the wait for its writer thread after the outputs.
         "gibbs_writer_seconds": gibbs_writer_seconds,
         "gibbs_writer_join_seconds": gibbs_join_seconds,
+        # Peak allocated device memory per data shard's device, and the
+        # largest of them (MiB; empty and 0 on the CPU).
+        "device_peak_mib": peaks,
+        "device_peak_mib_max": max(peaks.values(), default=0.0),
         **inference,
     }
 

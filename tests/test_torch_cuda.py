@@ -666,3 +666,66 @@ def test_multiprocess_forks_before_cuda(cuda, tmp_path):
     for suffix in (".txt", "_joint.txt"):
         with open(str(tmp_path / "mp") + suffix, "rb") as a, open(str(tmp_path / "single") + suffix, "rb") as b:
             assert a.read() == b.read()
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op torch thread, as the port's CPU test files pin it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_sharded_kernels_bitwise_on_virtual_cuda_shards(cuda, one_thread):
+    """Every kernel dispatch on 4 virtual shards of the card against one
+    shard: each task, job and cluster is computed alone, so bitwise."""
+    from rpvg_tpu_torch.parallel import autoshard
+
+    tasks = em_task_set(300, seed=41)
+    jobs = gibbs_job_set(60, seed=43)
+    keys = [prng.prng_key(i) for i in range(len(jobs))]
+    clusters = posterior_cluster_set(64, seed=45, max_paths=10)
+    ckeys = [prng.prng_key(500 + i) for i in range(len(clusters))]
+
+    def run():
+        em, packed = batching.run_batched_em_packed(tasks, 10000, 1e-3, cuda)
+        picked = np.arange(len(jobs))
+        gibbs_tasks = [(job[0], job[1]) for job in jobs]
+        _, gibbs_packed = batching.run_batched_em_packed(gibbs_tasks, 10000, 1e-3, cuda)
+        return (
+            em,
+            readcount_gibbs.run_batched_gibbs(jobs, keys, 4, 3, 1.0, cuda,
+                                              packed=(gibbs_packed, picked)),
+            posteriors.full_posteriors_batched(clusters, 3, cuda),
+            posteriors.path_group_posteriors_gibbs_batched(clusters, 2, ckeys, cuda),
+            posteriors.path_group_posteriors_gibbs_batched(clusters[:24], 3, ckeys[:24], cuda),
+            len(packed.parts),
+        )
+
+    def same(a, b):
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, np.ndarray):
+            return np.array_equal(a, b)
+        return a == b
+
+    single = run()
+    with autoshard.virtual_devices(cuda, 4):
+        sharded = run()
+    assert single[-1] == 1 and sharded[-1] > 1
+    for name, a, b in zip(("em", "read-count Gibbs", "group scores", "posterior Gibbs 2",
+                           "posterior Gibbs 3"), sharded, single):
+        assert same(a, b), name
+
+
+def test_dryrun_multidevice_4_virtual_cuda_shards(cuda, one_thread):
+    """The dry run on 4 virtual shards of the card: the mesh step, the
+    batched dispatches and the pipeline in both regimes with -n 3 -b and the
+    giant-cluster shard route."""
+    from rpvg_tpu_torch import entry
+
+    report = entry.dryrun_multidevice(4, cuda, virtual=True)
+    assert set(report["regimes"]) == {"score", "qual"}
+    assert set(report["regimes"].values()) <= {"byte-identical", "compare.py"}
+    assert report["sharded_giant_clusters"] > 0

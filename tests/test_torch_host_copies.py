@@ -99,9 +99,11 @@ def test_port_builds_its_own_native_library():
 
 
 def test_no_file_of_the_port_imports_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from) rpvg_tpu(\.|\s|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from) (rpvg_tpu|jax)(\.|\s|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PORT_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = [path for path in files if pattern.search(_read(path).decode())]
     assert len(files) > 40 and not offenders, offenders
+    for new in ("parallel/autoshard.py", "parallel/mesh.py", "entry.py"):
+        assert os.path.join(PORT_DIR, *new.split("/")) in files

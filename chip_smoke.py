@@ -49,7 +49,10 @@ Phases (each prints at least one line; any failure exits non-zero):
    distributional bounds against the native sampler), against the native
    sampler on tests/test_gibbs_crossbackend.py's fixture, then on phase
    9's captured jobs: their first min(S, 8) samples against the plain
-   version likewise, and re-timed;
+   version likewise, and re-timed; their slowest job alone, its cycles
+   per iteration between the kernel's clock64 marks
+   (tools/torch_gibbs_profile.py's build), and its dependent-chain floor
+   (its iterations x the time of an iteration with no work);
 8. the posterior Gibbs kernel likewise (every sampled pair equal to the
    plain version's, or the cluster within total variation 0.05; against
    the native sampler on the fixture), on seeded clusters of up to 200
@@ -69,7 +72,11 @@ Phases (each prints at least one line; any failure exits non-zero):
    200 paths and at k = 1 and 4 on 17 of them (every group equal to the
    plain version's, or the
    cluster within total variation 0.05 of it; diverged clusters counted)
-   and on phase 10's --use-hap-gibbs clusters;
+   and on phase 10's --use-hap-gibbs clusters: their share of zero
+   probabilities and of (32-path, row) tiles holding a nonzero, the logs
+   the bound counts (R + nonzeros per slot step) beside R x P, and the
+   slowest chain alone with its cycles per slot step and its
+   dependent-chain floor;
 13. (run inside the dataset's directory, after 10) haplotype-transcripts
    -f --ind-hap-inference on phase 4's dataset, with the counters reset
    just before and read just after: wall, pairs/s, phases I1-I3 and C-E,
@@ -617,6 +624,20 @@ def gibbs_bound(jobs, thin):
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
+def k_slot_logs(jobs, dense=False):
+    """FP64 logs of a k-slot call: over clusters, chains x (burn + its) x k
+    x (R + nonzeros), one per row and one per nonzero probability (a zero
+    entry's log is its row's, computed once), or with ``dense`` R x P, one
+    per entry as the first kernel computed them."""
+    import numpy as np
+
+    h = jobs.host
+    R, P = h["n_rows"].astype(np.float64), h["n_cols"].astype(np.float64)
+    per_step = R * P if dense else R + h["n_nonzeros"].astype(np.float64)
+    steps = (h["n_chains"] * (h["n_burn"] + h["n_its"])).astype(np.float64)
+    return float((steps * jobs.group_size * per_step).sum())
+
+
 def posterior_bound(jobs, per_log=None):
     """(bound ms, what bounds it) of a posterior Gibbs call.
 
@@ -628,22 +649,20 @@ def posterior_bound(jobs, per_log=None):
 
     k slots (``KSlotJobs``): the probabilities, noise, counts and log
     frequencies read once and every iteration's int32 group written once
-    at the HBM rate, against the FP64 logs, sum over clusters of chains x
-    (burn + its) x k x R x P, each ``per_log`` FP64 instructions (this
-    build's SASS, ``fp64_log_instructions``) counted as one operation at
-    the FP64 peak without tensor cores (34 TFLOP/s; a lower bound, since
-    that peak counts a fused multiply-add as two)."""
+    at the HBM rate, against the FP64 logs the function needs
+    (``k_slot_logs``: R + nonzeros per slot step), each ``per_log`` FP64
+    instructions (this build's SASS, ``fp64_log_instructions``) counted as
+    one operation at the FP64 peak without tensor cores (34 TFLOP/s; a
+    lower bound, since that peak counts a fused multiply-add as two)."""
     import numpy as np
 
     h = jobs.host
     if per_log is not None:
         R, P = h["n_rows"].astype(np.float64), h["n_cols"].astype(np.float64)
-        steps = (h["n_chains"] * (h["n_burn"] + h["n_its"])).astype(np.float64)
-        logs = float((steps * jobs.group_size * R * P).sum())
         in_bytes = 8 * float((R * P + 2 * R + P + 11).sum())
         out_bytes = 4 * float(h["out_offsets"][-1])
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        ops_ms = logs * per_log / FP64_FLOPS_NO_TENSOR * 1e3
+        ops_ms = k_slot_logs(jobs) * per_log / FP64_FLOPS_NO_TENSOR * 1e3
         return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
     P = h["n_cols"].astype(np.float64)
     steps = (h["n_chains"] * (h["n_burn"] + h["n_its"])).astype(np.float64)
@@ -703,6 +722,64 @@ def fp64_log_instructions(work):
                           check=True, capture_output=True, text=True).stdout
     ops = Counter(re.findall(r"\b(" + "|".join(FP64_OPCODES) + r")(?=[ .])", sass))
     return sum(ops.values()), dict(ops)
+
+
+def profile_tool():
+    """tools/torch_gibbs_profile.py as a module (its clock64 builds and
+    sparsity counts)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_gibbs_profile.py")
+    spec = importlib.util.spec_from_file_location("torch_gibbs_profile", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def step_cycles(module, call, steps):
+    """Cycles per step between the kernel's clock64 marks (thread 0 of
+    block 0, a build with -DRPVG_GIBBS_PROFILE) over one ``call()`` of
+    ``steps`` steps, and whether that build's output is the port's."""
+    from rpvg_tpu_torch.ops import build
+
+    tool = profile_tool()
+    lib, marks = tool.profiled_library(build, module)
+    cycles, same = tool.run_profiled(module, lib, marks, call)
+    return [round(c / steps) for c in cycles], same
+
+
+def readcount_minimum_us(device):
+    """Microseconds of one read-count iteration with no work: a 1 x 1
+    job's time at 2,000 iterations less at 1,000, over 1,000."""
+    import numpy as np
+
+    from rpvg_tpu_torch.infer.batching import pack_ragged
+    from rpvg_tpu_torch.ops import gibbs_cuda
+
+    tiny = pack_ragged([(np.ones((1, 1)), np.ones(1))], device)
+
+    def ms(samples):
+        jobs = gibbs_cuda.make_jobs(tiny, [0], [np.ones(1)], [1], [samples])
+        return cuda_ms(lambda: gibbs_cuda.gibbs_read_counts(jobs, 10, 1.0), reps=5)
+
+    return (ms(200) - ms(100)) / 1000 * 1e3
+
+
+def k_slot_minimum_us(device, k):
+    """Microseconds of one slot step with no work: a 1-row, 1-path
+    cluster's one chain at 2,000 iterations less at 1,000, over 1,000 k."""
+    import numpy as np
+
+    from rpvg_tpu_torch.ops import posterior_gibbs_k_cuda
+
+    tiny = (np.ones((1, 1)), np.full(1, 0.01), np.ones(1), np.zeros(1))
+
+    def ms(its):
+        jobs = posterior_gibbs_k_cuda.make_jobs([tiny], k, [(1, its // 2, its // 2)], [1], device)
+        return cuda_ms(lambda: posterior_gibbs_k_cuda.posterior_gibbs_k(jobs), reps=5)
+
+    return (ms(2000) - ms(1000)) / (1000 * k) * 1e3
 
 
 def gibbs_job_item(jobs, j):
@@ -857,8 +934,20 @@ def phase_gibbs_kernel(torch, device, captured):
             [fracs[offsets[j]:offsets[j + 1]]],
             [int(main_jobs.seeds[j].item()) & 0xFFFFFFFFFFFFFFFF], [int(main_jobs.host_samples[j])],
         )
-        slow.append((cuda_ms(lambda: gibbs_cuda.gibbs_read_counts(one, thin, gamma), reps=3), j))
-    alone_ms, j = max(slow)
+        slow.append((cuda_ms(lambda: gibbs_cuda.gibbs_read_counts(one, thin, gamma), reps=3), j, one))
+    alone_ms, j, one = max(slow, key=lambda item: item[0])
+    # Where an iteration of that job goes, and the floor its chain of
+    # dependent iterations sets.
+    iterations = int(main_jobs.host_samples[j]) * thin
+    cycles, same = step_cycles(gibbs_cuda, lambda: gibbs_cuda.gibbs_read_counts(one, thin, gamma),
+                               iterations)
+    minimum_us = readcount_minimum_us(device)
+    floor_ms = iterations * minimum_us / 1e3
+    task = int(main_jobs.host_task_ids[j])
+    r0, r1 = (int(main_jobs.tasks.row_offsets[task + i]) for i in (0, 1))
+    row_counts = main_jobs.tasks.counts[r0:r1].cpu().numpy()
+    (route,) = gibbs_cuda.plan_launches(one.shapes[:, 0], one.shapes[:, 1],
+                                        gibbs_cuda.job_trials(one))
     log(
         f"phase 7: the -n 100 run's phase-D2 jobs ({main_jobs.n_jobs}, samples median "
         f"{int(np.median(main_jobs.host_samples))} max {int(main_jobs.host_samples.max())}, "
@@ -867,8 +956,18 @@ def phase_gibbs_kernel(torch, device, captured):
         f"{main_max_abs:.3e}), {len(main_diverged)} diverged (each within the distributional "
         f"bounds of the native sampler), plain {short_plain_s:.1f} s; re-timed: kernel "
         f"{main_ms:.3f} ms (CUDA events), bound {main_bound:.5f} ms ({main_by}); slowest job "
-        f"{tuple(map(int, shapes[j]))} x {int(main_jobs.host_samples[j])} samples alone "
+        f"{tuple(map(int, shapes[j]))} x {int(main_jobs.host_samples[j])} samples "
+        f"({int(row_counts.sum())} reads, largest row {int(row_counts.max())}; "
+        f"{route.ctas} CTA(s) of {route.threads} threads, staged {route.staged}) alone "
         f"{alone_ms:.3f} ms"
+    )
+    log(
+        f"phase 7: that job's {iterations} iterations, cycles per iteration between the "
+        f"kernel's marks (CDF build, trials, barrier 1 (the cluster's when split), Gamma "
+        f"draws, barrier 2, output) {cycles} "
+        f"(sum {sum(cycles)}; profiled build bitwise the port's: {same}); per-iteration minimum "
+        f"(a 1 x 1 job) {minimum_us:.3f} us, so its dependent-chain floor is {iterations} x "
+        f"{minimum_us:.3f} us = {floor_ms:.3f} ms beside the work bound {main_bound:.5f} ms"
     )
     return {
         "max_abs_err": max(max_abs, main_max_abs), "ms": kernel_ms, "plain_ms": plain_ms,
@@ -876,6 +975,8 @@ def phase_gibbs_kernel(torch, device, captured):
         "main_path_jobs": main_jobs.n_jobs, "main_path_diverged_jobs": len(main_diverged),
         "main_path_jobs_ms": main_ms, "main_path_jobs_bound_ms": main_bound,
         "main_path_slowest_job_ms": alone_ms,
+        "main_path_slowest_job_cycles_per_iteration": cycles,
+        "iteration_minimum_us": minimum_us, "main_path_slowest_job_floor_ms": floor_ms,
     }
 
 
@@ -1150,7 +1251,6 @@ def phase_posterior_k_kernel(torch, device, captured, per_log):
         clusters = (seeded_set if k == 3 else seeded_set[:16]) + [wide]
         keys = prng.split(prng.prng_key(94 + k), len(clusters))
         jobs = posteriors.posterior_gibbs_k_jobs(clusters, k, keys, device)
-        plan = posterior_gibbs_k_cuda.plan_launches(jobs.host["n_rows"], jobs.host["n_cols"], k)
         kernel = posterior_gibbs_k_cuda.posterior_gibbs_k(jobs)
         again = posterior_gibbs_k_cuda.posterior_gibbs_k(jobs)
         torch.cuda.synchronize()
@@ -1160,11 +1260,11 @@ def phase_posterior_k_kernel(torch, device, captured, per_log):
         diverged, worst_tv, max_abs = held_to_plain(
             posteriors, jobs, kernel.cpu().numpy(), plain.cpu().numpy()
         )
-        unstaged = sum(lc.tasks.size for lc in plan if not lc.staged)
+        unstaged, clustered = k_slot_routes(jobs)
         log(
             f"phase 12: k-slot sampler, k = {k}: {len(clusters)} seeded clusters ({unstaged} past "
-            f"shared memory, {int(jobs.host['n_chains'].sum())} chains in {len(jobs.launches)} "
-            f"launches): "
+            f"shared memory, {clustered} on a cluster of CTAs, "
+            f"{int(jobs.host['n_chains'].sum())} chains in {len(jobs.launches)} launches): "
             f"{len(clusters) - len(diverged)} with every group equal to plain, {len(diverged)} "
             f"diverged (worst total variation {worst_tv:.4f}, allowed {TV_MAX}); largest "
             f"posterior difference {max_abs:.4f}"
@@ -1193,6 +1293,30 @@ def phase_posterior_k_kernel(torch, device, captured, per_log):
     plain_s = time.perf_counter() - t0
     diverged, worst_tv, max_abs = held_to_plain(posteriors, main, kernel, plain)
     main_bound, main_by = posterior_bound(main, per_log)
+    unstaged, clustered = k_slot_routes(main)
+    tool = profile_tool()
+    zero_share, tile_share, _, _ = tool.sparsity([item[0] for item in tool.cluster_inputs(main)])
+    logs, dense_logs = k_slot_logs(main), k_slot_logs(main, dense=True)
+    log(
+        f"phase 12: the run's clusters: {zero_share:.4f} of the probabilities are zero, "
+        f"{tile_share:.4f} of the (32-path, row) tiles hold a nonzero; the bound counts "
+        f"{logs:.4g} FP64 logs (R + nonzeros per slot step) where a log per entry would be "
+        f"{dense_logs:.4g} (R x P, {main_bound * dense_logs / logs:.5f} ms); {unstaged} "
+        f"clusters past shared memory, {clustered} on a cluster of CTAs"
+    )
+    chain = slowest_chain(main, device)
+    main_floor_ms = chain["slot_steps"] * chain["minimum_us"] / 1e3
+    log(
+        f"phase 12: the slowest chain (cluster {chain['cluster']}: {chain['shape'][0]} x "
+        f"{chain['shape'][1]}, {chain['nonzeros']} nonzeros, {chain['slot_steps']} slot steps on "
+        f"{chain['threads']} threads x {chain['ctas']} CTA(s)) alone {chain['ms']:.3f} ms; cycles "
+        f"per slot step between the kernel's marks (step 1, barrier, step 2, cluster barrier, "
+        f"draw, barrier) {chain['cycles']} (sum {sum(chain['cycles'])}; profiled build bitwise "
+        f"the port's: {chain['same']}); slot-step minimum (a 1 x 1 cluster) "
+        f"{chain['minimum_us']:.3f} us, so its dependent-chain floor is {chain['slot_steps']} x "
+        f"{chain['minimum_us']:.3f} us = {main_floor_ms:.3f} ms beside the work bound "
+        f"{main_bound:.5f} ms"
+    )
     log(
         f"phase 12: the haplotypes -y 3 --use-hap-gibbs run's {main.n_clusters} clusters (P median "
         f"{int(np.median(main.host['n_cols']))} max {int(main.host['n_cols'].max())}, "
@@ -1204,9 +1328,54 @@ def phase_posterior_k_kernel(torch, device, captured, per_log):
     report.update(
         max_abs_err=max(report["max_abs_err"], max_abs), main_path_clusters=main.n_clusters,
         main_path_diverged_clusters=len(diverged), main_path_clusters_ms=main_ms,
-        main_path_clusters_bound_ms=main_bound,
+        main_path_clusters_bound_ms=main_bound, main_path_zero_share=zero_share,
+        main_path_tile_share=tile_share, main_path_logs=logs, main_path_logs_per_entry=dense_logs,
+        main_path_slowest_chain_ms=chain["ms"], main_path_slowest_chain_shape=chain["shape"],
+        main_path_slowest_chain_cycles_per_slot_step=chain["cycles"],
+        slot_step_minimum_us=chain["minimum_us"], main_path_slowest_chain_floor_ms=main_floor_ms,
     )
     return report
+
+
+def k_slot_routes(jobs):
+    """(clusters past shared memory, clusters whose chains run on a
+    thread-block cluster of several CTAs) of KSlotJobs."""
+    import numpy as np
+
+    cluster_of = jobs.chain_cluster.cpu().numpy()
+    unstaged = {int(c) for lc in jobs.launches if not lc.staged for c in cluster_of[lc.tasks]}
+    return len(unstaged), int(np.count_nonzero(jobs.host["n_ctas"] > 1))
+
+
+def slowest_chain(jobs, device):
+    """The chain that sets a k-slot call's critical path: of the cluster
+    with the most logs per chain (slot steps x (R + nonzeros)), one chain
+    alone, timed, and its cycles per slot step between the kernel's
+    marks; with the slot-step minimum."""
+    import numpy as np
+
+    from rpvg_tpu_torch.ops import posterior_gibbs_k_cuda
+
+    h = jobs.host
+    k = jobs.group_size
+    steps = h["n_burn"] + h["n_its"]
+    b = int(np.argmax(steps * (h["n_rows"] + h["n_nonzeros"])))
+    (item,) = profile_tool().cluster_inputs(jobs)[b:b + 1]
+    seed = int(jobs.seeds[b].item()) & 0xFFFFFFFFFFFFFFFF
+    one = posterior_gibbs_k_cuda.make_jobs(
+        [item], k, [(1, int(h["n_burn"][b]), int(h["n_its"][b]))], [seed], device
+    )
+    sample = posterior_gibbs_k_cuda.posterior_gibbs_k
+    slot_steps = k * int(steps[b])
+    cycles, same = step_cycles(posterior_gibbs_k_cuda, lambda: sample(one), slot_steps)
+    (launch,) = one.launches
+    return {
+        "cluster": b, "shape": [int(h["n_rows"][b]), int(h["n_cols"][b])],
+        "nonzeros": int(h["n_nonzeros"][b]), "slot_steps": slot_steps,
+        "threads": launch.threads, "ctas": launch.ctas,
+        "ms": cuda_ms(lambda: sample(one), reps=3), "cycles": cycles, "same": same,
+        "minimum_us": k_slot_minimum_us(device, k),
+    }
 
 
 GIBBS_CONFIGS = (
@@ -2386,6 +2555,10 @@ def main() -> int:
             "main_path_jobs_ms": gibbs["main_path_jobs_ms"],
             "main_path_jobs_bound_ms": gibbs["main_path_jobs_bound_ms"],
             "main_path_slowest_job_ms": gibbs["main_path_slowest_job_ms"],
+            "main_path_slowest_job_cycles_per_iteration":
+                gibbs["main_path_slowest_job_cycles_per_iteration"],
+            "iteration_minimum_us": gibbs["iteration_minimum_us"],
+            "main_path_slowest_job_floor_ms": gibbs["main_path_slowest_job_floor_ms"],
         },
         {
             "name": posterior_gibbs_cuda.KERNEL_NAME,
@@ -2447,6 +2620,11 @@ def main() -> int:
             "main_path_diverged_clusters": k_slot["main_path_diverged_clusters"],
             "main_path_clusters_ms": k_slot["main_path_clusters_ms"],
             "main_path_clusters_bound_ms": k_slot["main_path_clusters_bound_ms"],
+            **{key: k_slot[f"main_path_{key}"] for key in (
+                "zero_share", "tile_share", "logs", "logs_per_entry", "slowest_chain_ms",
+                "slowest_chain_shape", "slowest_chain_cycles_per_slot_step",
+                "slowest_chain_floor_ms")},
+            "slot_step_minimum_us": k_slot["slot_step_minimum_us"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -114,13 +114,15 @@ def _kernel_fn():
 class Launch:
     """One kernel launch: the tasks (indices into the caller's task list)
     that run as teams of ``threads`` threads (32: one warp per task,
-    ``WARPS_PER_BLOCK`` per block), staged in shared memory or not, and
-    the dynamic shared memory of one block."""
+    ``WARPS_PER_BLOCK`` per block), staged in shared memory or not, the
+    dynamic shared memory of one block, and the CTAs of the thread-block
+    cluster that runs one task (the Gibbs samplers split a large one)."""
 
     threads: int
     staged: bool
     tasks: np.ndarray  # int64
     smem_bytes: int
+    ctas: int = 1
 
 
 def team_threads(rows: np.ndarray, cols: np.ndarray) -> np.ndarray:

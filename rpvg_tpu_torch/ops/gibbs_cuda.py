@@ -42,12 +42,14 @@ from rpvg_tpu_torch.ops.em_cuda import (
 
 # Kernel launches, and jobs they covered, since the last reset.  Only a
 # kernel launch adds to them; one call makes one launch per (team size,
-# staged), and each job is in exactly one.
+# CTAs, staged), and each job is in exactly one.
 LAUNCHES = 0
 JOBS = 0
 
 KERNEL_NAME = "gibbs_readcount"
 _TEAMS = (32, 64, 128, 256, 512)
+# The most CTAs (a thread-block cluster) a job's rows split over.
+_MAX_CTAS = 8
 _fn = None
 
 # Counter word 3 tags (gibbs_readcount.cu kTag*).
@@ -60,7 +62,9 @@ TAG_BOOST = 5 << 24
 MAX_ATTEMPTS = 1 << 20
 # Rows of at most this many reads draw one categorical trial per read;
 # larger rows split by binomials (gibbs_readcount.cu kMaxTrials).
-MAX_TRIALS = 256
+MAX_TRIALS = 16384
+# Trials per binary-search batch of the plain version ((trials, C) CDF rows).
+_PLAIN_TRIAL_CHUNK = 1 << 16
 
 
 @dataclass
@@ -154,38 +158,94 @@ def _kernel_fn():
         fn = build.load_library(KERNEL_NAME).rpvg_gibbs_readcount_f64
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 13
-            + [ctypes.c_int64] * 2 + [ctypes.c_double] + [ctypes.c_int64] * 3
+            [ctypes.c_void_p] * 15
+            + [ctypes.c_int64] * 2 + [ctypes.c_double] + [ctypes.c_int64] * 4
             + [ctypes.c_void_p] * 2
         )
         _fn = fn
     return _fn
 
 
-def plan_launches(rows, cols) -> List[Launch]:
-    """One launch per (team size, staged): a job's team is the least of
-    32, 64, 128, 256 and 512 threads that covers max(R, C); its P is staged
-    in shared memory when fracs, draws, the total and P fit.  Raises
-    ValueError for a job whose fracs and draws alone do not fit."""
-    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
-    cols = np.asarray(cols, dtype=np.int64).reshape(-1)
-    width = np.maximum(rows, cols)
+def _aligned(nbytes):
+    return (np.asarray(nbytes, dtype=np.int64) + 7) // 8 * 8
+
+
+def shared_bytes(rows, cols, staged) -> np.ndarray:
+    """Dynamic shared memory of a CTA of ``rows`` rows: its weights, path
+    counts (two int32 buffers) and blocks' sums; when staged also its
+    rows' CDFs and P, and its row tables (int32: R + 2 trial starts and
+    counts, R rows over MAX_TRIALS reads) (gibbs_readcount.cu)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    head = 8 * (2 * cols + -(-cols // 32))
+    tables = _aligned(4 * (2 * rows + 2))
+    return head + np.where(staged, 16 * rows * cols + tables, 0)
+
+
+def scratch_doubles(rows, cols, staged) -> np.ndarray:
+    """Doubles of a job's global scratch: none when staged, else its
+    CDFs, its row tables and P transposed."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cells = rows * np.asarray(cols, dtype=np.int64)
+    return np.where(staged, 0, 2 * cells + rows + 1)
+
+
+def team_threads(rows, cols, trials) -> np.ndarray:
+    """Threads of a job's CTA, from its CTA's work per iteration: the
+    least of _TEAMS that covers its rows (a lane per row CDF), its columns
+    (a thread per Gamma draw) and half its categorical trials (two rounds
+    of trials a warp)."""
+    width = np.maximum(np.maximum(rows, cols), -(-np.asarray(trials, dtype=np.int64) // 2))
     threads = np.full(width.shape, _TEAMS[-1], dtype=np.int64)
     for team in reversed(_TEAMS):
         threads[width <= team] = team
-    base = 2 * cols + 1
-    staged = 8 * (base + rows * cols) <= SMEM_LIMIT
-    need = np.where(staged, base + rows * cols, base)
-    if (8 * need > SMEM_LIMIT).any():
-        i = int(np.flatnonzero(8 * need > SMEM_LIMIT)[0])
+    return threads
+
+
+def plan_launches(rows, cols, trials) -> List[Launch]:
+    """One launch per (CTAs, team size, staged), largest first.  A job
+    runs staged on the fewest CTAs of a thread-block cluster, up to
+    _MAX_CTAS, whose row slices' CDFs and P fit shared memory; a job too
+    large for that runs unstaged on one CTA.  Its team is
+    :func:`team_threads` of one CTA's share.  Raises ValueError for a job
+    whose weights and counts alone do not fit."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    cols = np.asarray(cols, dtype=np.int64).reshape(-1)
+    trials = np.asarray(trials, dtype=np.int64).reshape(-1)
+    ctas = np.ones(rows.shape, dtype=np.int64)
+    staged = np.zeros(rows.shape, dtype=bool)
+    n = 1
+    while n <= _MAX_CTAS:
+        fits = ~staged & (shared_bytes(-(-rows // n), cols, True) <= SMEM_LIMIT)
+        ctas[fits] = n
+        staged |= fits
+        n *= 2
+    share = -(-rows // ctas)
+    threads = team_threads(share, cols, -(-trials // ctas))
+    need = shared_bytes(share, cols, staged)
+    if (need > SMEM_LIMIT).any():
+        i = int(np.flatnonzero(need > SMEM_LIMIT)[0])
         raise ValueError(f"{KERNEL_NAME}: a job of {cols[i]} columns does not fit shared memory")
     launches = []
-    for team in reversed(_TEAMS):
-        for on_chip in (True, False):
-            members = np.flatnonzero((threads == team) & (staged == on_chip))
-            if members.size:
-                launches.append(Launch(team, on_chip, members, 8 * int(need[members].max())))
+    for n in sorted(set(ctas.tolist()), reverse=True):
+        for team in reversed(_TEAMS):
+            for on_chip in (True, False):
+                members = np.flatnonzero((ctas == n) & (threads == team) & (staged == on_chip))
+                if members.size:
+                    launches.append(Launch(team, on_chip, members, int(need[members].max()), n))
     return launches
+
+
+def job_trials(jobs: GibbsJobs) -> np.ndarray:
+    """Per job, the categorical trials of one iteration: the reads of its
+    rows of at most MAX_TRIALS reads (one device read-back)."""
+    tasks = jobs.tasks
+    counts = tasks.counts
+    kept = torch.where(counts <= MAX_TRIALS, torch.floor(counts), torch.zeros_like(counts))
+    running = torch.cat([torch.zeros(1, dtype=counts.dtype, device=counts.device),
+                         torch.cumsum(kept, 0)])
+    per_task = (running[tasks.row_offsets[1:]] - running[tasks.row_offsets[:-1]]).cpu().numpy()
+    return per_task.astype(np.int64)[jobs.host_task_ids]
 
 
 def _check_jobs(jobs: GibbsJobs) -> None:
@@ -214,10 +274,29 @@ def _launch(jobs: GibbsJobs, thin_its: int, gamma: float) -> torch.Tensor:
     if not active.size:
         return out
     shapes = jobs.shapes[active]
+    trials = job_trials(jobs)[active]
+    if int(trials.max(initial=0)) >= 2**31:
+        raise ValueError("gibbs_read_counts: more trials in a job than a 32-bit index holds")
+    # The longest jobs first: in each launch by samples x (R C + trials),
+    # the launches by their longest job.
+    cost = jobs.host_samples[active] * (shapes[:, 0] * shapes[:, 1] + trials)
+    planned = sorted(
+        ((int(cost[lc.tasks].max()), lc) for lc in plan_launches(shapes[:, 0], shapes[:, 1], trials)),
+        key=lambda item: -item[0],
+    )
     launches = [
-        Launch(lc.threads, lc.staged, active[lc.tasks], lc.smem_bytes)
-        for lc in plan_launches(shapes[:, 0], shapes[:, 1])
+        Launch(lc.threads, lc.staged,
+               active[lc.tasks[np.argsort(-cost[lc.tasks], kind="stable")]], lc.smem_bytes, lc.ctas)
+        for _, lc in planned
     ]
+    # Each unstaged job's global scratch.
+    at = np.zeros(jobs.n_jobs, dtype=np.int64)
+    members = np.concatenate([lc.tasks for lc in launches])
+    staged = np.concatenate([np.full(lc.tasks.size, lc.staged) for lc in launches])
+    sizes = scratch_doubles(jobs.shapes[members, 0], jobs.shapes[members, 1], staged)
+    at[members] = np.cumsum(sizes) - sizes
+    scratch = torch.empty(max(1, int(sizes.sum())), dtype=torch.float64, device=device)
+    job_scratch = to_device(at, device)
     tasks = jobs.tasks
 
     def call(launch: Launch, ids: int, stream: int) -> int:
@@ -226,16 +305,15 @@ def _launch(jobs: GibbsJobs, thin_its: int, gamma: float) -> torch.Tensor:
             jobs.seeds.data_ptr(), tasks.mat_offsets.data_ptr(), tasks.row_offsets.data_ptr(),
             tasks.n_rows.data_ptr(), tasks.n_cols.data_ptr(), jobs.task_ids.data_ptr(),
             jobs.frac_offsets.data_ptr(), jobs.out_offsets.data_ptr(),
-            jobs.n_samples.data_ptr(), ids, int(launch.tasks.size), int(thin_its),
-            float(gamma), launch.threads, int(launch.staged), launch.smem_bytes,
-            out.data_ptr(), stream,
+            jobs.n_samples.data_ptr(), ids, job_scratch.data_ptr(), scratch.data_ptr(),
+            int(launch.tasks.size), int(thin_its), float(gamma), launch.threads,
+            int(launch.staged), launch.ctas, launch.smem_bytes, out.data_ptr(), stream,
         )
 
     run_launches(KERNEL_NAME, launches, launch_task_ids(launches, device), call)
     LAUNCHES += len(launches)
     JOBS += int(active.size)
     return out
-
 
 # ------------------------------------------------------------ plain version
 
@@ -381,7 +459,7 @@ def _gamma_mt(shape, key, t, c):
         # the acceptance uniform.
         g0, g1 = uniforms(t, c[idx, None], attempt, tags, k0[idx, None], k1[idx, None])
         u = g0[:, 1]
-        x = torch.sqrt(-2.0 * torch.log(g0[:, 0])) * torch.cos(6.283185307179586 * g1[:, 0])
+        x = torch.sqrt(-2.0 * torch.log(g0[:, 0])) * torch.cos(math.pi * (2.0 * g1[:, 0]))
         v = 1.0 + cm[idx] * x
         positive = v > 0.0
         v = v * v * v
@@ -431,8 +509,9 @@ def gamma_plain(counts, gamma: float, key, t, c):
 def gibbs_read_counts_plain(jobs: GibbsJobs, thin_its: int, gamma: float) -> torch.Tensor:
     """The kernel's contract in plain PyTorch on the jobs' device: all
     jobs advance together, one iteration at a time, each row and column
-    drawing at the kernel's counters; a job stops keeping samples at its
-    own count."""
+    drawing at the kernel's counters from the last iteration's Gamma
+    draws (the starting fractions at first); a job stops keeping samples
+    at its own count."""
     device = jobs.device
     tasks = jobs.tasks
     J = jobs.n_jobs
@@ -462,7 +541,7 @@ def gibbs_read_counts_plain(jobs: GibbsJobs, thin_its: int, gamma: float) -> tor
     row_counts = tasks.counts[to_dev(row_off[row_job] + row_idx)]
     n_row = row_counts.to(torch.int64)
     job_ok = col[None, :] < C_j[:, None]
-    fracs = torch.where(
+    weights = torch.where(
         to_dev(job_ok),
         jobs.init_fracs[to_dev(np.where(job_ok, frac_off[:-1, None] + col[None, :], 0))],
         0.0,
@@ -489,7 +568,7 @@ def gibbs_read_counts_plain(jobs: GibbsJobs, thin_its: int, gamma: float) -> tor
 
     iterations = int(jobs.host_samples.max()) * int(thin_its)
     for it in range(iterations):
-        post = probs * fracs[row_job_t]
+        post = probs * weights[row_job_t]
         acc = torch.empty_like(post)
         running = torch.zeros(post.shape[0], dtype=torch.float64, device=device)
         for c in range(Cm):
@@ -499,8 +578,8 @@ def gibbs_read_counts_plain(jobs: GibbsJobs, thin_its: int, gamma: float) -> tor
         path_counts = torch.zeros(J * Cm, dtype=torch.float64, device=device)
 
         # n <= MAX_TRIALS: one categorical draw per trial (trial k of row r
-        # at counter (it, r, k)), a walk of the prefix sums: the first
-        # column whose prefix sum exceeds the uniform times the row's mass.
+        # at counter (it, r, k)), a binary search of the row's CDF: the
+        # first column whose prefix sum exceeds the uniform times the mass.
         cat = torch.nonzero(live & (n_row <= MAX_TRIALS)).squeeze(1)
         if cat.numel():
             n_cat = n_row[cat]
@@ -512,12 +591,12 @@ def gibbs_read_counts_plain(jobs: GibbsJobs, thin_its: int, gamma: float) -> tor
             u, _ = uniforms(
                 it, row_t[rows], trial_k, TAG_CATEGORICAL, row_key[0][rows], row_key[1][rows]
             )
-            x = torch.full((cat.numel(), int(n_cat.max())), math.inf, dtype=torch.float64,
-                           device=device)
-            x[trial_row, trial_k] = u * running[rows]
-            hit = torch.searchsorted(acc[cat], x, right=True)[trial_row, trial_k]
-            hit = torch.minimum(hit, row_last[rows])
-            path_counts.index_add_(0, flat_row[rows] + hit, torch.ones_like(u))
+            x = u * running[rows]
+            for lo in range(0, rows.numel(), _PLAIN_TRIAL_CHUNK):
+                part = slice(lo, lo + _PLAIN_TRIAL_CHUNK)
+                hit = torch.searchsorted(acc[rows[part]], x[part, None], right=True)[:, 0]
+                hit = torch.minimum(hit, row_last[rows[part]])
+                path_counts.index_add_(0, flat_row[rows[part]] + hit, torch.ones_like(x[part]))
 
         # n > MAX_TRIALS: binomial splits, column by column.
         big = torch.nonzero(live & (n_row > MAX_TRIALS)).squeeze(1)
@@ -555,15 +634,18 @@ def gibbs_read_counts_plain(jobs: GibbsJobs, thin_its: int, gamma: float) -> tor
         draws[gamma_idx] = gamma_plain(path_counts[gamma_idx], gamma, col_key, it, col_t)
         draws = draws.view(J, Cm)
 
-        # Warp 0's sum: lane l over columns l, l + 32, ..., then the butterfly.
+        # The sum: each block of 32 columns by the butterfly (lane 0's
+        # value), then the blocks in order.
         padded = torch.zeros(J, lanes, dtype=torch.float64, device=device)
         padded[:, :Cm] = draws
-        lane = torch.zeros(J, 32, dtype=torch.float64, device=device)
-        for block in range(lanes // 32):
-            lane = lane + padded[:, 32 * block : 32 * (block + 1)]
+        lane = padded.view(J, lanes // 32, 32)
         for perm in butterfly:
-            lane = lane + lane[:, perm]
-        fracs = torch.where(job_ok_t, draws / lane[:, :1], 0.0)
+            lane = lane + lane[:, :, perm]
+        total = torch.zeros(J, dtype=torch.float64, device=device)
+        for block in range(lanes // 32):
+            total = total + lane[:, block, 0]
+        weights = draws
+        fracs = torch.where(job_ok_t, draws / total[:, None], 0.0)
 
         if (it + 1) % thin_its == 0:
             s = (it + 1) // thin_its - 1

@@ -63,10 +63,13 @@ LAUNCHES = 0
 CLUSTERS = 0
 
 KERNEL_NAME = "gibbs_posterior_k"
-# Threads of a chain's block by its cluster's R * P: (most elements,
-# threads), then 256.
-_TEAMS = ((256, 32), (4096, 128))
-_MAX_TEAM = 256
+# A chain's team by its cluster's logs per slot step, R + nonzeros: the
+# least power of two of threads, 32 to 1,024, that takes at most
+# _ENTRIES_PER_THREAD each; past 1,024 threads a cluster of up to
+# _MAX_CTAS CTAs of 1,024 splits the rows.
+_ENTRIES_PER_THREAD = 8
+_MAX_THREADS = 1024
+_MAX_CTAS = 8
 _fn = None
 
 TAG_INIT = 0 << 24
@@ -83,21 +86,28 @@ class KSlotJobs:
     n_cols[b]), its noise and counts at ``row_offsets[b]``, its log path
     frequencies at ``col_offsets[b]``; it runs ``n_chains[b]`` chains of
     ``n_burn[b] + n_its[b]`` iterations on the stream of ``seeds[b]`` and
-    writes chains x iterations x k int32 at ``out_offsets[b]``.  The
-    kernel's blocks, one per (cluster, chain), are planned here once:
-    block i runs chain ``block_chain[i]`` of cluster ``block_cluster[i]``
-    (an unstaged one with its workspace at ``block_scratch[i]`` of a
-    scratch of ``scratch_doubles``), and ``launches`` list their blocks by
-    index (``block_ids``).  ``host`` holds the integer arrays on the host,
-    by name."""
+    writes chains x iterations x k int32 at ``out_offsets[b]``.  Its
+    nonzero lists (:func:`nonzero_lists`, cut into ``n_ctas[b]`` row
+    slices) start at ``nz_offsets[b]`` of ``nz_rows`` / ``nz_q`` and
+    ``ptr_offsets[b]`` of ``nz_ptr``.  The kernel's chains are planned
+    here once: chain entry i runs chain ``chain_index[i]`` of cluster
+    ``chain_cluster[i]`` (an unstaged one with its workspace at
+    ``chain_scratch[i]`` of a scratch of ``scratch_doubles``), and
+    ``launches`` list their entries by index (``chain_ids``).  ``host``
+    holds the integer arrays on the host, by name."""
 
     probs: torch.Tensor        # float64 (sum R P,)
     noise: torch.Tensor        # float64 (sum R,)
     counts: torch.Tensor       # float64 (sum R,)
     log_freqs: torch.Tensor    # float64 (sum P,)
+    nz_rows: torch.Tensor      # int32 (nonzeros,)
+    nz_q: torch.Tensor         # float64 (nonzeros,)
+    nz_ptr: torch.Tensor       # int32 (sum C P + 1,)
     mat_offsets: torch.Tensor  # int64 (n,)
     row_offsets: torch.Tensor  # int64 (n,)
     col_offsets: torch.Tensor  # int64 (n,)
+    nz_offsets: torch.Tensor   # int64 (n,)
+    ptr_offsets: torch.Tensor  # int64 (n,)
     n_rows: torch.Tensor       # int64 (n,)
     n_cols: torch.Tensor       # int64 (n,)
     n_chains: torch.Tensor     # int64 (n,)
@@ -105,10 +115,10 @@ class KSlotJobs:
     n_its: torch.Tensor        # int64 (n,)
     seeds: torch.Tensor        # int64 (n,)
     out_offsets: torch.Tensor  # int64 (n + 1,)
-    block_cluster: torch.Tensor  # int64 (blocks,)
-    block_chain: torch.Tensor    # int64 (blocks,)
-    block_scratch: torch.Tensor  # int64 (blocks,)
-    block_ids: torch.Tensor      # int64 (blocks,)
+    chain_cluster: torch.Tensor  # int64 (chains,)
+    chain_index: torch.Tensor    # int64 (chains,)
+    chain_scratch: torch.Tensor  # int64 (chains,)
+    chain_ids: torch.Tensor      # int64 (chains,)
     launches: List[Launch]
     scratch_doubles: int
     group_size: int
@@ -123,8 +133,8 @@ class KSlotJobs:
         return self.probs.device
 
 
-_FIELDS = ("mat_offsets", "row_offsets", "col_offsets", "n_rows", "n_cols", "n_chains",
-           "n_burn", "n_its", "out_offsets")
+_FIELDS = ("mat_offsets", "row_offsets", "col_offsets", "nz_offsets", "ptr_offsets", "n_rows",
+           "n_cols", "n_chains", "n_burn", "n_its", "out_offsets")
 
 
 def make_jobs(
@@ -140,12 +150,23 @@ def make_jobs(
     sizing = np.asarray(sizing, dtype=np.int64).reshape(-1, 3)
     rows = np.array([item[0].shape[0] for item in inputs], dtype=np.int64)
     cols = np.array([item[0].shape[1] for item in inputs], dtype=np.int64)
+    nonzeros = np.array([np.count_nonzero(item[0]) for item in inputs], dtype=np.int64)
+    _, ctas = chain_team(rows, nonzeros)
+    lists = [nonzero_lists(item[0], group_size, int(c)) for item, c in zip(inputs, ctas)]
+    slice_nonzeros = np.array(
+        [int(np.diff(ptr[::cols[b]]).max(initial=0)) for b, (_, _, ptr) in enumerate(lists)],
+        dtype=np.int64,
+    )
     host = {
         "mat_offsets": _offsets(rows * cols)[:-1],
         "row_offsets": _offsets(rows)[:-1],
         "col_offsets": _offsets(cols)[:-1],
+        "nz_offsets": _offsets(nonzeros)[:-1],
+        "ptr_offsets": _offsets(ctas * cols + 1)[:-1],
         "n_rows": rows,
         "n_cols": cols,
+        "n_nonzeros": nonzeros,
+        "n_ctas": ctas,
         "n_chains": sizing[:, 0].copy(),
         "n_burn": sizing[:, 1].copy(),
         "n_its": sizing[:, 2].copy(),
@@ -153,23 +174,34 @@ def make_jobs(
     host["out_offsets"] = _offsets(
         host["n_chains"] * (host["n_burn"] + host["n_its"]) * int(group_size)
     )
-    launches, blocks, scratch_doubles = plan_blocks(rows, cols, host["n_chains"], group_size)
+    launches, chains, scratch_doubles = plan_chains(
+        rows, cols, nonzeros, host["n_chains"], host["n_burn"] + host["n_its"], group_size,
+        slice_nonzeros,
+    )
     seeds = np.asarray(seeds, dtype=np.uint64).reshape(-1).view(np.int64)
     return KSlotJobs(
         probs=concat_to_device([item[0] for item in inputs], device),
         noise=concat_to_device([item[1] for item in inputs], device),
         counts=concat_to_device([item[2] for item in inputs], device),
         log_freqs=concat_to_device([item[3] for item in inputs], device),
+        nz_rows=_concat_int32([rows_ for rows_, _, _ in lists], device),
+        nz_q=concat_to_device([q for _, q, _ in lists], device),
+        nz_ptr=_concat_int32([ptr for _, _, ptr in lists], device),
         **{name: to_device(host[name], device) for name in _FIELDS},
         seeds=to_device(seeds, device),
-        **{f"block_{name}": to_device(blocks[name], device)
-           for name in ("cluster", "chain", "scratch")},
-        block_ids=launch_task_ids(launches, device),
+        **{f"chain_{name}": to_device(chains[name], device)
+           for name in ("cluster", "index", "scratch")},
+        chain_ids=launch_task_ids(launches, device),
         launches=launches,
         scratch_doubles=scratch_doubles,
         group_size=int(group_size),
         host=host,
     )
+
+
+def _concat_int32(arrays, device: torch.device) -> torch.Tensor:
+    flat = np.concatenate(arrays) if arrays else np.zeros(0)
+    return torch.from_numpy(np.ascontiguousarray(flat, dtype=np.int32)).to(device)
 
 
 def posterior_gibbs_k(jobs: KSlotJobs) -> torch.Tensor:
@@ -191,98 +223,147 @@ def _kernel_fn():
     if _fn is None:
         fn = build.load_library(KERNEL_NAME).rpvg_gibbs_posterior_k_f64
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 5 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int64] * 6 + [ctypes.c_void_p] * 2
         _fn = fn
     return _fn
 
 
-def team_threads(rows, cols) -> np.ndarray:
-    """Threads of a chain's block, from its cluster's R * P alone."""
-    work = np.asarray(rows, dtype=np.int64) * np.asarray(cols, dtype=np.int64)
-    threads = np.full(work.shape, _MAX_TEAM, dtype=np.int64)
-    for most, team in reversed(_TEAMS):
-        threads[work <= most] = team
-    return threads
+def nonzero_lists(probs: np.ndarray, group_size: int, ctas: int):
+    """A cluster's nonzero lists for the kernel: its rows cut into
+    ``ctas`` slices of ceil(R / ctas), and in each slice every path's
+    nonzero rows in row order.  Returns (rows local to their slice, int32;
+    probs / k of each entry, float64; the first entry of (slice, path),
+    int32 (ctas * P + 1,))."""
+    probs = np.asarray(probs, dtype=np.float64)
+    R, P = probs.shape
+    rows_per = -(-R // ctas) if R else 1
+    r, p = np.nonzero(probs)
+    part = r // rows_per
+    order = np.lexsort((r, p, part))
+    r, p, part = r[order], p[order], part[order]
+    ptr = np.zeros(ctas * P + 1, dtype=np.int64)
+    np.cumsum(np.bincount(part * P + p, minlength=ctas * P), out=ptr[1:])
+    return (r - part * rows_per).astype(np.int32), probs[r, p] / group_size, ptr.astype(np.int32)
 
 
-def workspace_doubles(rows, cols, threads) -> np.ndarray:
-    """Doubles of a chain's workspace: R for noise + occupied, then S * P
-    partial logits, S = threads // min(P, threads) row slices
-    (csrc/gibbs_posterior_k.cu)."""
+def _ceil_pow2_array(values) -> np.ndarray:
+    values = np.maximum(np.asarray(values, dtype=np.int64), 1)
+    return (1 << np.ceil(np.log2(values)).astype(np.int64)).astype(np.int64)
+
+
+def chain_team(rows, nonzeros):
+    """(threads per CTA, CTAs per chain) of each cluster, from its logs
+    per slot step (R + nonzeros) alone."""
+    work = np.asarray(rows, dtype=np.int64) + np.asarray(nonzeros, dtype=np.int64)
+    per = -(-work // _ENTRIES_PER_THREAD)
+    threads = np.clip(_ceil_pow2_array(per), 32, _MAX_THREADS)
+    ctas = np.where(threads == _MAX_THREADS,
+                    np.clip(_ceil_pow2_array(-(-per // _MAX_THREADS)), 1, _MAX_CTAS), 1)
+    return threads, ctas.astype(np.int64)
+
+
+def shared_bytes(rows, cols, slice_nonzeros, group_size: int, ctas, staged) -> np.ndarray:
+    """Dynamic shared memory of a chain's CTA: its k slots (int32, padded
+    to 8 bytes), the weights, the double-buffered partials and bad-row
+    hits, the warps' partials, the log frequencies; when staged also its rows' noise, counts,
+    base and log, and its slice of the lists (entries and path starts).
+    The dense probabilities stay in global memory: staging them too cost
+    more in blocks per SM than it saved (34-35 ms against 45-46 ms on a
+    1,263-cluster run, tools/torch_gibbs_profile.py)."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
-    threads = np.asarray(threads, dtype=np.int64)
-    slices = threads // np.maximum(1, np.minimum(cols, threads))
-    return rows + slices * cols
-
-
-def shared_bytes(rows, cols, threads, group_size: int, staged) -> np.ndarray:
-    """Dynamic shared memory of a chain's block: its k slots (int32,
-    padded to 8 bytes), the maximum, and when staged its workspace and
-    its (R, P) probabilities."""
-    head = 8 * (1 + (int(group_size) + 1) // 2)
-    body = 8 * (workspace_doubles(rows, cols, threads) + np.asarray(rows) * np.asarray(cols))
+    nonzeros = np.asarray(slice_nonzeros, dtype=np.int64)
+    head = 8 * ((int(group_size) + 1) // 2 + 5 * cols + 68)
+    rows_per = -(-rows // np.asarray(ctas, dtype=np.int64))
+    body = 8 * (4 * rows_per + nonzeros) + 8 * (-(-(nonzeros + cols + 1) // 2))
     return head + np.where(staged, body, 0)
 
 
-def plan_launches(rows, cols, group_size: int) -> List[Launch]:
-    """One launch per (team size, staged): every chain of a cluster is a
-    block of its team; a cluster is staged when its probabilities and
-    workspace fit one block's shared memory, else they are read from
-    global memory and the workspace is a global scratch.  ``tasks`` are
-    cluster indices; the kernel's blocks are their chains."""
+def plan_launches(rows, cols, nonzeros, group_size: int, slice_nonzeros=None) -> List[Launch]:
+    """One launch per (threads, CTAs, staged), largest teams first:
+    every chain of a cluster is a cluster of its CTAs; a cluster is staged
+    when each CTA's rows and list slice (at most ``slice_nonzeros``
+    entries; all ``nonzeros`` when not given) fit its shared memory, else
+    they are read from global memory and the workspace is a global
+    scratch.  ``tasks`` are cluster indices; the kernel's chains are
+    their chains.  Raises ValueError for a cluster whose partials alone
+    do not fit."""
     rows = np.asarray(rows, dtype=np.int64).reshape(-1)
     cols = np.asarray(cols, dtype=np.int64).reshape(-1)
-    threads = team_threads(rows, cols)
-    staged = shared_bytes(rows, cols, threads, group_size, True) <= SMEM_LIMIT
+    nonzeros = np.asarray(nonzeros, dtype=np.int64).reshape(-1)
+    slice_nonzeros = nonzeros if slice_nonzeros is None else np.asarray(
+        slice_nonzeros, dtype=np.int64).reshape(-1)
+    threads, ctas = chain_team(rows, nonzeros)
+    head = shared_bytes(rows, cols, slice_nonzeros, group_size, ctas, False)
+    if (head > SMEM_LIMIT).any():
+        i = int(np.flatnonzero(head > SMEM_LIMIT)[0])
+        raise ValueError(f"{KERNEL_NAME}: a cluster of {cols[i]} paths does not fit shared memory")
+    staged = shared_bytes(rows, cols, slice_nonzeros, group_size, ctas, True) <= SMEM_LIMIT
     launches = []
-    for team in sorted({t for _, t in _TEAMS} | {_MAX_TEAM}, reverse=True):
+    for team in sorted(set(zip(ctas.tolist(), threads.tolist())), reverse=True):
         for on_chip in (True, False):
-            members = np.flatnonzero((threads == team) & (staged == on_chip))
+            members = np.flatnonzero((ctas == team[0]) & (threads == team[1]) & (staged == on_chip))
             if members.size:
-                smem = shared_bytes(rows[members], cols[members], team, group_size, on_chip)
-                launches.append(Launch(team, on_chip, members, int(smem.max())))
+                smem = shared_bytes(rows[members], cols[members], slice_nonzeros[members],
+                                    group_size, team[0], on_chip)
+                launches.append(Launch(team[1], on_chip, members, int(smem.max()), team[0]))
     return launches
 
 
-def plan_blocks(rows, cols, n_chains, group_size: int):
-    """The kernel's blocks: :func:`plan_launches` with each cluster cut
-    into its chains.  Returns (launches whose ``tasks`` are block
-    indices, the blocks' ``cluster``, ``chain`` and ``scratch`` offsets by
-    name, the scratch's doubles)."""
+def plan_chains(rows, cols, nonzeros, n_chains, steps, group_size: int, slice_nonzeros=None):
+    """The kernel's chain entries: :func:`plan_launches` with each cluster
+    cut into its chains, the longest first in every launch (k x steps
+    slot steps, each its logs per thread plus a barrier's worth), and the
+    launches in order of their longest chain.  Returns (launches whose
+    ``tasks`` are entry indices, the entries' ``cluster``, ``index`` and
+    ``scratch`` offsets by name, the scratch's doubles)."""
     rows = np.asarray(rows, dtype=np.int64).reshape(-1)
     cols = np.asarray(cols, dtype=np.int64).reshape(-1)
+    nonzeros = np.asarray(nonzeros, dtype=np.int64).reshape(-1)
     n_chains = np.asarray(n_chains, dtype=np.int64).reshape(-1)
-    launches, parts = [], {"cluster": [], "chain": [], "scratch": []}
+    steps = np.asarray(steps, dtype=np.int64).reshape(-1)
+    planned = []
+    for launch in plan_launches(rows, cols, nonzeros, group_size, slice_nonzeros):
+        members = launch.tasks
+        per_thread = -(-(rows[members] + nonzeros[members]) // (launch.threads * launch.ctas))
+        cost = int(group_size) * steps[members] * (per_thread + 8)
+        order = np.argsort(-cost, kind="stable")
+        planned.append((int(cost.max()), launch, members[order]))
+    planned.sort(key=lambda item: -item[0])
+    launches, parts = [], {"cluster": [], "index": [], "scratch": []}
     at = scratch = 0
-    for launch in plan_launches(rows, cols, group_size):
-        per = n_chains[launch.tasks]
-        cluster = np.repeat(launch.tasks, per)
+    for _, launch, members in planned:
+        per = n_chains[members]
+        cluster = np.repeat(members, per)
         parts["cluster"].append(cluster)
-        parts["chain"].append(np.arange(cluster.size) - np.repeat(_offsets(per)[:-1], per))
+        parts["index"].append(np.arange(cluster.size) - np.repeat(_offsets(per)[:-1], per))
         if launch.staged:
             parts["scratch"].append(np.zeros(cluster.size, dtype=np.int64))
         else:
-            sizes = workspace_doubles(rows[cluster], cols[cluster], launch.threads)
+            sizes = 2 * launch.ctas * -(-rows[cluster] // launch.ctas)
             parts["scratch"].append(scratch + _offsets(sizes)[:-1])
             scratch += int(sizes.sum())
         launches.append(Launch(launch.threads, launch.staged, np.arange(at, at + cluster.size),
-                               launch.smem_bytes))
+                               launch.smem_bytes, launch.ctas))
         at += cluster.size
-    blocks = {
+    chains = {
         name: np.concatenate(arrays).astype(np.int64) if arrays else np.zeros(0, np.int64)
         for name, arrays in parts.items()
     }
-    return launches, blocks, scratch
+    return launches, chains, scratch
 
 
 def _check(jobs: KSlotJobs) -> None:
     device = jobs.device
-    for name in ("probs", "noise", "counts", "log_freqs"):
+    for name in ("probs", "noise", "counts", "log_freqs", "nz_q"):
         t = getattr(jobs, name)
         if t.dtype != torch.float64 or not t.is_contiguous() or t.device != device:
             raise ValueError(f"posterior_gibbs_k: {name} must be contiguous float64 on {device}")
-    for name in _FIELDS + ("seeds", "block_cluster", "block_chain", "block_scratch", "block_ids"):
+    for name in ("nz_rows", "nz_ptr"):
+        t = getattr(jobs, name)
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"posterior_gibbs_k: {name} must be contiguous int32 on {device}")
+    for name in _FIELDS + ("seeds", "chain_cluster", "chain_index", "chain_scratch", "chain_ids"):
         t = getattr(jobs, name)
         if t.dtype != torch.int64 or not t.is_contiguous() or t.device != device:
             raise ValueError(f"posterior_gibbs_k: {name} must be contiguous int64 on {device}")
@@ -293,6 +374,8 @@ def _check(jobs: KSlotJobs) -> None:
         raise ValueError("posterior_gibbs_k: every cluster needs a path")
     if (host["n_burn"] + host["n_its"] >= 2**32).any() or (host["n_chains"] >= 2**32).any():
         raise ValueError("posterior_gibbs_k: more steps or chains than a 32-bit counter holds")
+    if (host["n_nonzeros"] >= 2**31).any():
+        raise ValueError("posterior_gibbs_k: more nonzeros than a 32-bit list index holds")
 
 
 def _launch(jobs: KSlotJobs) -> torch.Tensor:
@@ -307,20 +390,21 @@ def _launch(jobs: KSlotJobs) -> torch.Tensor:
     def call(launch: Launch, ids: int, stream: int) -> int:
         return _kernel_fn()(
             jobs.probs.data_ptr(), jobs.noise.data_ptr(), jobs.counts.data_ptr(),
-            jobs.log_freqs.data_ptr(), jobs.mat_offsets.data_ptr(), jobs.row_offsets.data_ptr(),
-            jobs.col_offsets.data_ptr(), jobs.n_rows.data_ptr(), jobs.n_cols.data_ptr(),
-            jobs.n_chains.data_ptr(), jobs.n_burn.data_ptr(), jobs.n_its.data_ptr(),
-            jobs.seeds.data_ptr(), jobs.out_offsets.data_ptr(), jobs.block_cluster.data_ptr(),
-            jobs.block_chain.data_ptr(), jobs.block_scratch.data_ptr(), ids, scratch.data_ptr(),
-            int(launch.tasks.size), jobs.group_size, launch.threads, int(launch.staged),
-            launch.smem_bytes, out.data_ptr(), stream,
+            jobs.log_freqs.data_ptr(), jobs.nz_rows.data_ptr(), jobs.nz_q.data_ptr(),
+            jobs.nz_ptr.data_ptr(), jobs.mat_offsets.data_ptr(), jobs.row_offsets.data_ptr(),
+            jobs.col_offsets.data_ptr(), jobs.nz_offsets.data_ptr(), jobs.ptr_offsets.data_ptr(),
+            jobs.n_rows.data_ptr(), jobs.n_cols.data_ptr(), jobs.n_burn.data_ptr(),
+            jobs.n_its.data_ptr(), jobs.seeds.data_ptr(), jobs.out_offsets.data_ptr(),
+            jobs.chain_cluster.data_ptr(), jobs.chain_index.data_ptr(),
+            jobs.chain_scratch.data_ptr(), ids, scratch.data_ptr(),
+            int(launch.tasks.size), jobs.group_size, launch.threads, launch.ctas,
+            int(launch.staged), launch.smem_bytes, out.data_ptr(), stream,
         )
 
-    run_launches(KERNEL_NAME, jobs.launches, jobs.block_ids, call)
+    run_launches(KERNEL_NAME, jobs.launches, jobs.chain_ids, call)
     LAUNCHES += len(jobs.launches)
     CLUSTERS += jobs.n_clusters
     return out
-
 
 # ------------------------------------------------------------ plain version
 

@@ -98,8 +98,8 @@ def gibbs_job(rng: np.random.Generator, probs: np.ndarray, counts: np.ndarray) -
 
 def gibbs_job_set(n_jobs: int, seed: int) -> List[GibbsJob]:
     """``n_jobs`` read-count Gibbs jobs on :func:`em_task_set` tasks, with
-    counts scaled by 1-3 so that some rows draw their trials over a warp
-    (count > 4), followed by :func:`gibbs_edge_jobs`."""
+    counts scaled by 1-3 so that rows carry up to a few dozen reads,
+    followed by :func:`gibbs_edge_jobs`."""
     rng = np.random.default_rng(seed)
     jobs = []
     for probs, counts in em_task_set(n_jobs, seed)[:n_jobs]:
@@ -108,10 +108,10 @@ def gibbs_job_set(n_jobs: int, seed: int) -> List[GibbsJob]:
 
 
 def gibbs_edge_jobs(rng: np.random.Generator) -> List[GibbsJob]:
-    """C = 1 (noise only); rows whose sum is zero; counts of 5-40 (trials
-    drawn over a warp); one row with a count of 10^4 (binomial splits by
-    BTRS); counts of 300-900 over 12 columns (binomial splits by inversion
-    and by BTRS)."""
+    """C = 1 (noise only); rows whose sum is zero; counts of 5-40; one
+    row with a count of 10^4; counts of 300-900 over 12 columns (all
+    categorical trials, under the read-count sampler's MAX_TRIALS; rows
+    over it split by binomials)."""
     noise_only = (rng.uniform(0.1, 1.0, size=(3, 1)), np.array([2.0, 7.0, 1.0]))
     zero_rows = rng.dirichlet(np.ones(4), size=6)
     zero_rows[[1, 4]] = 0.0

@@ -293,15 +293,17 @@ def test_transcripts_slice_on_cuda_matches_cpu(cuda, fuse, tmp_path, monkeypatch
 # ------------------------------------------------ the Gibbs samplers
 
 
-def _over_shared_memory_job():
-    """A job whose P does not fit one block's shared memory (read from
-    global memory), and a small one beside it."""
+def _over_shared_memory_job(rows):
+    """A job of ``rows`` x 12 whose CDFs and P do not fit one CTA's shared
+    memory (at 3,000 rows they fit four CTAs of a cluster; at 12,000 not
+    even eight, so they live in a global scratch), and a small one beside
+    it."""
     rng = np.random.default_rng(44)
-    big = gibbs_job(rng, *random_task(rng, 3000, 12))
+    big = gibbs_job(rng, *random_task(rng, rows, 12))
     return [big, gibbs_job(rng, *random_task(rng, 3, 9))]
 
 
-@pytest.mark.parametrize("case", ["job_set", "edge_jobs", "over_shared_memory"])
+@pytest.mark.parametrize("case", ["job_set", "edge_jobs", "over_shared_memory", "cluster"])
 def test_gibbs_readcount_kernel_matches_plain(cuda, case):
     """Every kept fraction within rtol 1e-9 of the plain version on the
     same Philox counters."""
@@ -310,12 +312,15 @@ def test_gibbs_readcount_kernel_matches_plain(cuda, case):
     elif case == "edge_jobs":
         inputs = gibbs_edge_jobs(np.random.default_rng(43))
     else:
-        inputs = _over_shared_memory_job()
+        inputs = _over_shared_memory_job(12000 if case == "over_shared_memory" else 3000)
     samples = [3 + i % 4 for i in range(len(inputs))]
     jobs = gibbs_jobs_on(inputs, cuda, samples, seed=3)
-    plan = gibbs_cuda.plan_launches(jobs.shapes[:, 0], jobs.shapes[:, 1])
+    plan = gibbs_cuda.plan_launches(jobs.shapes[:, 0], jobs.shapes[:, 1],
+                                    gibbs_cuda.job_trials(jobs))
     if case == "over_shared_memory":
-        assert [lc.staged for lc in plan] == [False, True]
+        assert [(lc.ctas, lc.staged) for lc in plan] == [(1, False), (1, True)]
+    if case == "cluster":
+        assert [(lc.ctas, lc.staged) for lc in plan] == [(4, True), (1, True)]
     launches, n_jobs = gibbs_cuda.LAUNCHES, gibbs_cuda.JOBS
     kernel = gibbs_cuda.gibbs_read_counts(jobs, 5, 1.0)
     torch.cuda.synchronize()
@@ -324,6 +329,28 @@ def test_gibbs_readcount_kernel_matches_plain(cuda, case):
     assert gibbs_cuda.LAUNCHES == launches + len(plan)
     np.testing.assert_allclose(kernel.cpu().numpy(), plain.cpu().numpy(), rtol=1e-9, atol=0)
     assert bool(torch.isfinite(kernel).all())
+
+
+@pytest.mark.parametrize("reads", [5, 256, 257, 4096, 100000])
+def test_gibbs_readcount_kernel_rows_of_many_reads(cuda, reads):
+    """A row of ``reads`` reads beside rows of 1-3 (categorical trials up
+    to MAX_TRIALS, binomial splits above), in a job of 12 columns: every
+    kept fraction within rtol 1e-9 of the plain version, for every team
+    size."""
+    rng = np.random.default_rng(reads)
+    probs = rng.dirichlet(np.full(12, 0.5), size=9)
+    counts = np.append(rng.integers(1, 4, size=8).astype(np.float64), float(reads))
+    inputs = [gibbs_job(rng, probs, counts)]
+    jobs = gibbs_jobs_on(inputs, cuda, [4], seed=reads)
+    plain = gibbs_cuda.gibbs_read_counts_plain(jobs, 5, 1.0).cpu().numpy()
+    teams = gibbs_cuda._TEAMS
+    try:
+        for cap in (32, 512):
+            gibbs_cuda._TEAMS = tuple(t for t in teams if t <= cap)
+            kernel = gibbs_cuda.gibbs_read_counts(jobs, 5, 1.0).cpu().numpy()
+            np.testing.assert_allclose(kernel, plain, rtol=1e-9, atol=0)
+    finally:
+        gibbs_cuda._TEAMS = teams
 
 
 def test_gibbs_readcount_kernel_prefix_property(cuda):
@@ -462,44 +489,23 @@ def _k_slot_clusters(k):
     from rpvg_tpu_torch.testing import posterior_cluster_set, posterior_wide_cluster
 
     return posterior_cluster_set(24, seed=70 + k, max_paths=120) + [
-        posterior_wide_cluster(200, 79, n_rows=150)
+        posterior_wide_cluster(200, 79, n_rows=3000)
     ]
 
 
 @pytest.mark.parametrize("k", [1, 3, 4])
 def test_posterior_gibbs_k_kernel_matches_plain(cuda, k):
-    """Clusters of 1-120 paths and one of 200 paths x 150 rows (past
-    shared memory): every sampled group equal to the plain version's, or
+    """Clusters of 1-120 paths and one of 200 paths x 3,000 rows (180,000
+    nonzeros: past shared memory even in a cluster of 8 CTAs): every
+    sampled group equal to the plain version's, or
     the cluster's posterior within total variation 0.05 of the plain
     version's (a draw flips where a uniform falls within rounding of a
     CDF boundary)."""
     from rpvg_tpu_torch.ops import posterior_gibbs_k_cuda
 
     clusters = _k_slot_clusters(k)
-    keys = list(prng.split(prng.prng_key(8), len(clusters)))
-    jobs = posteriors.posterior_gibbs_k_jobs(clusters, k, keys, cuda)
-    plan = jobs.launches
-    assert any(not lc.staged for lc in plan)
-    launches = posterior_gibbs_k_cuda.LAUNCHES
-    kernel = posterior_gibbs_k_cuda.posterior_gibbs_k(jobs)
-    torch.cuda.synchronize()
-    assert posterior_gibbs_k_cuda.LAUNCHES == launches + len(plan)
-    again = posterior_gibbs_k_cuda.posterior_gibbs_k(jobs)
-    assert torch.equal(kernel, again)
-    kernel = kernel.cpu().numpy()
-    plain = posterior_gibbs_k_cuda.posterior_gibbs_k_plain(jobs).cpu().numpy()
-    h = jobs.host
-    k_post = posteriors._group_sample_posteriors(kernel, h, k)
-    p_post = posteriors._group_sample_posteriors(plain, h, k)
-    diverged = 0
-    for b in range(len(clusters)):
-        lo, hi = h["out_offsets"][b], h["out_offsets"][b + 1]
-        if not np.array_equal(kernel[lo:hi], plain[lo:hi]):
-            diverged += 1
-            a = dict(zip(map(tuple, k_post[b][0]), k_post[b][1]))
-            z = dict(zip(map(tuple, p_post[b][0]), p_post[b][1]))
-            tv = 0.5 * sum(abs(a.get(g, 0.0) - z.get(g, 0.0)) for g in set(a) | set(z))
-            assert tv < 0.05, (b, tv)
+    jobs, diverged = _hold_k_slot_to_plain(cuda, posterior_gibbs_k_cuda, clusters, k, key=8)
+    assert any(not lc.staged for lc in jobs.launches)
     assert diverged <= len(clusters) // 4
 
 
@@ -729,3 +735,77 @@ def test_dryrun_multidevice_4_virtual_cuda_shards(cuda, one_thread):
     assert set(report["regimes"]) == {"score", "qual"}
     assert set(report["regimes"].values()) <= {"byte-identical", "compare.py"}
     assert report["sharded_giant_clusters"] > 0
+
+
+@pytest.mark.parametrize("case", ["sparse", "dense"])
+def test_posterior_gibbs_k_kernel_sparse_and_dense_clusters(cuda, case):
+    """Clusters over 90 % zeros (most paths' logits from the shared row
+    logs alone) and with no zeros (every entry a list entry): every
+    sampled group equal to the plain version's, or the cluster within
+    total variation 0.05 of it."""
+    from rpvg_tpu_torch.ops import posterior_gibbs_k_cuda
+
+    rng = np.random.default_rng(81 if case == "sparse" else 82)
+    clusters = []
+    for i in range(12):
+        R, P = int(rng.integers(5, 120)), int(rng.integers(2, 60))
+        probs = rng.random((R, P))
+        if case == "sparse":
+            probs *= rng.random((R, P)) < 0.05
+            probs[np.arange(R), rng.integers(0, P, size=R)] += rng.random(R)
+            assert (probs == 0).mean() > 0.9 or P < 12
+        clusters.append((probs, rng.uniform(1e-4, 0.05, R),
+                         rng.geometric(0.4, size=R).astype(np.float64), [1] * P))
+    if case == "sparse":
+        assert np.mean([(c[0] == 0).mean() for c in clusters if c[0].shape[1] >= 12]) > 0.9
+    _hold_k_slot_to_plain(cuda, posterior_gibbs_k_cuda, clusters, 3)
+
+
+@pytest.mark.parametrize("k", [3, 4])
+def test_posterior_gibbs_k_kernel_multi_cta(cuda, k):
+    """A cluster whose logs per slot step need a thread-block cluster of
+    several CTAs (rows split across them, partials summed through
+    distributed shared memory), beside small ones: every group equal to
+    the plain version's, or within total variation 0.05."""
+    from rpvg_tpu_torch.ops import posterior_gibbs_k_cuda
+    from rpvg_tpu_torch.testing import posterior_cluster_set
+
+    rng = np.random.default_rng(90 + k)
+    R, P = 1500, 60
+    probs = rng.random((R, P)) * (rng.random((R, P)) < 0.5)
+    probs[np.arange(R), rng.integers(0, P, size=R)] += rng.random(R)
+    big = (probs, rng.uniform(1e-4, 0.05, R), rng.geometric(0.4, size=R).astype(np.float64),
+           [1] * P)
+    jobs, _ = _hold_k_slot_to_plain(cuda, posterior_gibbs_k_cuda,
+                                    [big] + posterior_cluster_set(6, seed=95), k)
+    assert max(lc.ctas for lc in jobs.launches) > 1
+
+
+def _hold_k_slot_to_plain(cuda, module, clusters, k, key=11):
+    """(jobs, diverged clusters) of the k-slot kernel on ``clusters``
+    against its plain version: one launch per planned launch, the same
+    groups on a second run, and every cluster's groups equal to the plain
+    version's or its posterior within total variation 0.05."""
+    keys = list(prng.split(prng.prng_key(key), len(clusters)))
+    jobs = posteriors.posterior_gibbs_k_jobs(clusters, k, keys, cuda)
+    launches = module.LAUNCHES
+    kernel = module.posterior_gibbs_k(jobs)
+    torch.cuda.synchronize()
+    assert module.LAUNCHES == launches + len(jobs.launches)
+    assert torch.equal(kernel, module.posterior_gibbs_k(jobs))
+    kernel = kernel.cpu().numpy()
+    plain = module.posterior_gibbs_k_plain(jobs).cpu().numpy()
+    h = jobs.host
+    k_post = posteriors._group_sample_posteriors(kernel, h, k)
+    p_post = posteriors._group_sample_posteriors(plain, h, k)
+    diverged = 0
+    for b in range(len(clusters)):
+        lo, hi = h["out_offsets"][b], h["out_offsets"][b + 1]
+        if not np.array_equal(kernel[lo:hi], plain[lo:hi]):
+            diverged += 1
+            a = dict(zip(map(tuple, k_post[b][0]), k_post[b][1]))
+            z = dict(zip(map(tuple, p_post[b][0]), p_post[b][1]))
+            tv = 0.5 * sum(abs(a.get(g, 0.0) - z.get(g, 0.0)) for g in set(a) | set(z))
+            assert tv < 0.05, (b, tv)
+    return jobs, diverged
+

@@ -268,6 +268,29 @@ def test_plain_readcount_edge_jobs():
         assert (np.abs(fracs[j].mean(axis=0) - native.mean(axis=0)) < 6 * se + 1e-9).all()
 
 
+def test_plain_readcount_rows_of_many_reads_match_native():
+    """Rows of 5, 256, 257 and 4,096 reads (categorical trials, a binary
+    search of the row's CDF each) and of 10^5 (binomial splits, past
+    MAX_TRIALS) in one job of 12 columns: the plain version's sample means
+    within 6 standard errors of the native sampler's at 200 samples."""
+    rng = np.random.default_rng(29)
+    probs = rng.dirichlet(np.full(12, 0.5), size=5)
+    counts = np.array([5.0, 256.0, 257.0, 4096.0, 1e5])
+    assert counts[3] <= gibbs_cuda.MAX_TRIALS < counts[4]
+    total = float(counts.sum())
+    item = (probs, counts, np.full(11, total / 12), total / 12, total)
+    keys = [prng.prng_key(30)]
+    S = 200
+    fracs = gibbs_cuda.gibbs_read_counts_plain(_jobs_on([item], keys, [S]), 2, 1.0).numpy()
+    fracs = fracs.reshape(S, 12)
+    assert np.isfinite(fracs).all() and (fracs > 0).all()
+    np.testing.assert_allclose(fracs.sum(axis=1), 1.0, rtol=1e-12)
+    ref = readcount_gibbs.run_batched_gibbs([item], keys, S, 2, 1.0, CPU)[0]
+    native = np.column_stack([ref[1], ref[0]]) / total
+    se = np.sqrt(fracs.var(axis=0) / S + native.var(axis=0) / S)
+    assert (np.abs(fracs.mean(axis=0) - native.mean(axis=0)) < 6 * se + 1e-9).all()
+
+
 def test_binomial_plain_moments():
     """Inversion (n p < 10) and BTRS (n p >= 10), flipped above p = 0.5:
     mean and variance of 4,000 draws each."""
@@ -340,26 +363,41 @@ def _edge_posterior():
 
 
 def test_launch_plans_cover_every_job_once():
-    rows = np.array([1, 3, 40, 300, 2000, 5, 200])
-    cols = np.array([1, 9, 61, 12, 30, 300, 150])
-    plan = gibbs_cuda.plan_launches(rows, cols)
+    """Every job in one launch; staged on the fewest CTAs of a cluster
+    (up to 8) whose row slices' CDFs and P fit shared memory, else
+    unstaged on one; its team covers one CTA's rows, columns and half its
+    trials (or is the largest)."""
+    rows = np.array([1, 3, 40, 300, 2000, 5, 200, 12000])
+    cols = np.array([1, 9, 61, 12, 30, 300, 100, 12])
+    trials = np.array([1, 40, 4000, 900, 2000, 5, 200, 100])
+    plan = gibbs_cuda.plan_launches(rows, cols, trials)
     assert sorted(np.concatenate([lc.tasks for lc in plan]).tolist()) == list(range(rows.size))
     for lc in plan:
-        width = np.maximum(rows[lc.tasks], cols[lc.tasks])
+        share = -(-rows[lc.tasks] // lc.ctas)
+        width = np.maximum(np.maximum(share, cols[lc.tasks]), -(-trials[lc.tasks] // (2 * lc.ctas)))
         assert (width <= lc.threads).all() or lc.threads == gibbs_cuda._TEAMS[-1]
         assert lc.smem_bytes <= gibbs_cuda.SMEM_LIMIT
-    staged = {int(t) for lc in plan if lc.staged for t in lc.tasks}
-    assert 4 not in staged and {0, 1, 2, 5} <= staged
+        assert (gibbs_cuda.shared_bytes(share, cols[lc.tasks], lc.staged) <= lc.smem_bytes).all()
+        assert lc.staged or lc.ctas == 1
+    route = {int(t): (lc.ctas, lc.staged) for lc in plan for t in lc.tasks}
+    assert route[4] == (8, True) and route[6] == (2, True) and route[7] == (1, False)
+    assert {route[i] for i in (0, 1, 2, 3, 5)} == {(1, True)}
+    team = {int(t): lc.threads for lc in plan for t in lc.tasks}
+    assert team[2] == 512 and team[0] == 32 and team[3] == 512
     pplan = posterior_gibbs_cuda.plan_launches([1, 100, 200], [10, 12, 14])
     assert sorted(np.concatenate([lc.tasks for lc in pplan]).tolist()) == [0, 1, 2]
     assert {int(t) for lc in pplan if not lc.staged for t in lc.tasks} == {2}
 
 
 def test_profile_tool_probes_each_barrier_of_an_iteration():
-    """tools/torch_gibbs_profile.py's clock64 copy of the kernel reads the
-    clock after each of an iteration's four barriers, once."""
+    """tools/torch_gibbs_profile.py builds each sampler with its clock64
+    marks on: the read-count iteration's two block barriers and the
+    k-slot step's three each have a mark before and after them, every
+    mark once; a kernel without marks (an earlier version) gets one
+    after each block barrier of its loop."""
     import importlib.util
     import os
+    import re
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     spec = importlib.util.spec_from_file_location(
@@ -367,7 +405,19 @@ def test_profile_tool_probes_each_barrier_of_an_iteration():
     )
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    with open(os.path.join(repo, "rpvg_tpu_torch", "csrc", "gibbs_readcount.cu")) as handle:
-        profiled = tool.profiled_source(handle.read())
-    assert [profiled.count(f"g_prof[{i}] +=") for i in range(5)] == [1, 1, 1, 1, 0]
-    assert "__device__ long long g_prof[4];" in profiled
+    for name, barriers, marks in (("gibbs_readcount", 2, 6), ("gibbs_posterior_k", 3, 6)):
+        with open(os.path.join(repo, "rpvg_tpu_torch", "csrc", f"{name}.cu")) as handle:
+            src = handle.read()
+        profiled, flags, count = tool.profiled_source(src, name)
+        assert flags == ("-DRPVG_GIBBS_PROFILE",) and count == marks
+        loop = src.split(tool.LOOP_HEADS[name], 1)[1]
+        found = re.findall(r"PROF_MARK\((\d)\);\s*(?:__syncthreads\(\);|if \(ctas > 1\) \{"
+                           r"[^}]*\}[^}]*\}\s*)\s*PROF_MARK\((\d)\);", loop)
+        assert len(found) == barriers, name
+        assert sorted(re.findall(r"PROF_MARK\((\d)\)", loop)) == [str(i) for i in range(marks)]
+        assert "g_prof" in profiled and "rpvg_prof_read" in profiled
+    old = "for (int64_t it = 0; it < iterations; ++it) {\n  a();\n  __syncthreads();\n  b();\n" \
+          "  __syncthreads();\n}\n"
+    profiled, flags, count = tool.profiled_source("#include <cstdint>\n" + old, "gibbs_readcount")
+    assert flags == () and count == 2
+    assert [profiled.count(f"PROF_MARK({i});") for i in range(3)] == [1, 1, 0]

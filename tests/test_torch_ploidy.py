@@ -240,15 +240,76 @@ def test_plain_k_slot_sampler_edge_clusters():
 
 
 def test_launch_plans_cover_every_cluster_once():
-    rows, cols = [1, 20, 150, 400], [1, 28, 200, 120]
-    plan = posterior_gibbs_k_cuda.plan_launches(rows, cols, 3)
+    """Every cluster in one launch; a team of 32-1,024 threads by its logs
+    per slot step (R + nonzeros), a cluster of CTAs past 1,024 threads'
+    worth; staged when each CTA's rows and list slice fit, and each
+    launch's shared memory within the limit."""
+    rows, cols = [1, 20, 150, 400, 3000], [1, 28, 200, 120, 120]
+    nonzeros = [1, 300, 9000, 24000, 100000]
+    plan = posterior_gibbs_k_cuda.plan_launches(rows, cols, nonzeros, 3)
     covered = np.sort(np.concatenate([lc.tasks for lc in plan]))
-    np.testing.assert_array_equal(covered, np.arange(4))
-    staged = {int(t): lc.staged for lc in plan for t in lc.tasks}
-    assert staged[0] and staged[1] and not staged[2] and not staged[3]
+    np.testing.assert_array_equal(covered, np.arange(5))
+    team = {int(t): (lc.threads, lc.ctas, lc.staged) for lc in plan for t in lc.tasks}
+    assert team[0] == (32, 1, True) and team[1] == (64, 1, True)
+    assert team[2] == (1024, 2, True) and team[3] == (1024, 4, False)
+    assert team[4] == (1024, 8, False)
     for lc in plan:
         assert lc.smem_bytes <= posterior_gibbs_k_cuda.SMEM_LIMIT
-        assert lc.threads in (32, 128, 256)
+        assert lc.threads in (32, 64, 128, 256, 512, 1024) and lc.ctas in (1, 2, 4, 8)
+    # Given the largest CTA slice, it decides, not the whole cluster.
+    sliced = posterior_gibbs_k_cuda.plan_launches([400, 3000], [120, 120], [24000, 100000], 3,
+                                                   [6000, 12500])
+    assert [(lc.ctas, lc.staged) for lc in sliced] == [(8, True), (4, True)]
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 8])
+def test_nonzero_lists_give_the_dense_logits(ctas):
+    """The kernel's logits from the nonzero lists (Z over the rows' logs,
+    plus each list entry's log difference; -inf for a path with a zero
+    entry in a row of base 0) equal the dense sum of counts x log(base +
+    probs / k) over all rows within rtol 1e-12, -inf where it is -inf;
+    every entry sits in its CTA's row slice, in (path, row) order."""
+    clusters = enumeration_cluster_set(6, seed=160 + ctas, group_size=3, max_paths=24, max_rows=40)
+    k = 3
+    for probs, noise, counts, _ in clusters:
+        R, P = probs.shape
+        rows, q, ptr = posterior_gibbs_k_cuda.nonzero_lists(probs, k, ctas)
+        rows_per = -(-R // ctas)
+        assert ptr.size == ctas * P + 1 and ptr[-1] == np.count_nonzero(probs)
+        lf = np.log(np.arange(1.0, P + 1.0) / P)
+        rng = np.random.default_rng(R * 31 + P)
+        for group in (rng.integers(0, P, k), np.zeros(k, dtype=np.int64)):
+            for j in range(k):
+                acc = np.zeros(R)
+                for i in range(k):
+                    acc = acc + (probs[:, group[i]] if i != j else 0.0)
+                base = noise + acc / k
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    x = base[:, None] + probs / k
+                    dense = (counts[:, None] * np.where(x > 0, np.log(np.maximum(x, 1e-300)), -np.inf)).sum(axis=0) + lf
+                    dense = np.where(np.isnan(dense), -np.inf, dense)
+                    lb = np.where(base > 0, np.log(np.maximum(base, 1e-300)), -np.inf)
+                good = base > 0
+                z = float((counts[good] * lb[good]).sum())
+                n_bad = int((~good).sum())
+                logits = np.full(P, z)
+                hits = np.zeros(P, dtype=np.int64)
+                for c in range(ctas):
+                    for p in range(P):
+                        for e in range(ptr[c * P + p], ptr[c * P + p + 1]):
+                            r = c * rows_per + int(rows[e])
+                            assert 0 <= rows[e] < rows_per and probs[r, p] != 0
+                            assert q[e] == probs[r, p] / k
+                            lx = np.log(base[r] + q[e])
+                            if good[r]:
+                                logits[p] += counts[r] * (lx - lb[r])
+                            else:
+                                logits[p] += counts[r] * lx
+                                hits[p] += 1
+                logits = np.where(hits < n_bad, -np.inf, logits + lf)
+                np.testing.assert_array_equal(np.isneginf(logits), np.isneginf(dense))
+                finite = np.isfinite(dense)
+                np.testing.assert_allclose(logits[finite], dense[finite], rtol=1e-12, atol=0)
 
 
 def test_cpu_tensors_take_plain_versions_without_launch():

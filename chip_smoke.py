@@ -13,8 +13,9 @@ Phases (each prints at least one line; any failure exits non-zero):
 1. build all six kernels (both EM kernels, the read-count and the
    pair-score Gibbs samplers, the group scorer and the k-slot sampler) from
    rpvg_tpu_torch/csrc with nvcc for sm_90a, in parallel, and beside them
-   a one-log probe whose SASS (cuobjdump) counts the FP64 instructions of
-   one float64 log, for the bounds of phases 11 and 12;
+   two one-log probes whose SASS (cuobjdump) counts the FP64 instructions
+   of one float64 log, libdevice's and the group scorer's own
+   (csrc/log_f64.cuh), for the bounds of phases 11 and 12;
 2. the ragged kernel against its plain PyTorch version on the card, on a
    seeded task set shaped like the main path's phase D; its time beside
    its roofline bound, and its slowest task alone;
@@ -56,18 +57,25 @@ Phases (each prints at least one line; any failure exits non-zero):
 8. the posterior Gibbs kernel likewise (every sampled pair equal to the
    plain version's, or the cluster within total variation 0.05; against
    the native sampler on the fixture), on seeded clusters of up to 200
-   paths and on phase 9's captured clusters, then re-timed on those;
+   paths and on phase 9's captured clusters, then re-timed on those; its
+   launches and blocks per SM on them, and their slowest cluster's
+   dependent-chain floor (its steps x the time of a step with no work);
 10. (run before 7, 8, 11 and 12, inside the dataset's directory) ploidy
    3 at full width on phase 4's dataset: haplotypes -y 3,
    haplotype-transcripts -f -y 3 and haplotypes -y 3 --use-hap-gibbs,
    each with the counters reset just before and read just after; what
-   the group scorer and the k-slot sampler were handed is captured;
+   the group scorer, the host enumeration engine and the k-slot sampler
+   were handed is captured;
    per run wall, pairs/s, phases, peak memory, the histogram of P and the
    clusters the host enumeration engine took, with its seconds;
 11. the group-score kernel against its plain version on 256 seeded
    clusters per group size 1, 3, 4 and 5 (every score within rtol 1e-10,
-   -inf where plain is) and on phase 10's captured clusters; timed beside
-   group_scores_bound, and with a broadcast table (no bank conflicts);
+   -inf where plain is, bitwise the same on a second run), on phase 10's
+   captured clusters and on the clusters its haplotypes -y 3 run handed
+   the host enumeration engine (their route unchanged); each timed beside
+   group_scores_bound for R x G logs and for the logs the kernel computes
+   (tools/torch_group_scores_profile.py's count), with the share of zero
+   probabilities, of U and of busy lanes, and the blocks per SM;
 12. the k-slot sampler likewise at k = 3 on 65 seeded clusters of up to
    200 paths and at k = 1 and 4 on 17 of them (every group equal to the
    plain version's, or the
@@ -674,19 +682,21 @@ def posterior_bound(jobs, per_log=None):
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
-def group_scores_bound(clusters, per_log):
+def group_scores_bound(clusters, per_log, logs=None):
     """(bound ms, what bounds it) of a group-score call: probabilities,
     noise, counts, the group tables and per-cluster words read once and
     the float64 scores written once at the HBM rate, against the FP64
-    logs, one per (row, group) of every cluster, each ``per_log`` FP64
-    instructions (this build's SASS) counted as one operation at the FP64
-    peak without tensor cores (34 TFLOP/s; a lower bound, since that peak
-    counts a fused multiply-add as two)."""
+    logs, ``logs`` of them (by default one per (row, group) of every
+    cluster, R x G), each ``per_log`` FP64 instructions (this build's
+    SASS) counted as one operation at the FP64 peak without tensor cores
+    (34 TFLOP/s; a lower bound, since that peak counts a fused
+    multiply-add as two)."""
     import numpy as np
 
     h = clusters.host
     R, P = h["n_rows"].astype(np.float64), h["n_cols"].astype(np.float64)
-    logs = float((R * h["n_groups"]).sum())
+    if logs is None:
+        logs = float((R * h["n_groups"]).sum())
     in_bytes = 8 * float((R * P + 2 * R + 7).sum()) + 4 * clusters.table.numel()
     out_bytes = 8 * float(h["out_offsets"][-1])
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
@@ -694,47 +704,72 @@ def group_scores_bound(clusters, per_log):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def group_score_logs(clusters):
+    """(R x G logs, the logs the kernel computes: R x P for the last slot
+    plus every group's rows U, lane-busy share of its warps, share of zero
+    probabilities) of GroupClusters, by tools/torch_group_scores_profile.py's
+    count."""
+    tool = load_tool("torch_group_scores_profile.py")
+    inputs = tool.host_inputs(clusters)
+    dense, factored, busy = tool.factored_logs(inputs, clusters.group_size)
+    return dense, factored, busy, tool.zero_share(inputs)
+
+
 LOG_PROBE = r"""
 extern "C" __global__ void log_probe(const double* x, double* y) {
   y[threadIdx.x] = log(x[threadIdx.x]);
 }
 """
+# The group scorer's own log (rpvg_tpu_torch/csrc/log_f64.cuh).
+TABLE_LOG_PROBE = r"""
+#include "log_f64.cuh"
+extern "C" __global__ void log_probe(const double* x, const double2* table, double* y) {
+  y[threadIdx.x] = log_f64::log_pos(x[threadIdx.x], table);
+}
+"""
 FP64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")
 
 
-def fp64_log_instructions(work):
+def fp64_log_instructions(work, source=LOG_PROBE):
     """(FP64 instructions of one double-precision log, by opcode) in the
     SASS of a one-log kernel built with the kernels' nvcc flags for
     sm_90a: every FP64-pipe instruction of the function, its rare paths
-    (zero, negative, denormal, infinite arguments) included."""
+    (zero, negative, denormal, infinite arguments) included.  ``source``
+    is libdevice's log (LOG_PROBE) or the group scorer's
+    (TABLE_LOG_PROBE)."""
     import re
     from collections import Counter
 
     from rpvg_tpu_torch.ops import build
 
-    src, cubin = os.path.join(work, "log_probe.cu"), os.path.join(work, "log_probe.cubin")
+    name = "log_probe" if source is LOG_PROBE else "table_log_probe"
+    src, cubin = os.path.join(work, name + ".cu"), os.path.join(work, name + ".cubin")
     with open(src, "w") as handle:
-        handle.write(LOG_PROBE)
+        handle.write(source)
     nvcc = build._nvcc()
-    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-o",
-                    cubin, src], check=True, capture_output=True, text=True)
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-I",
+                    build.CSRC_DIR, "-o", cubin, src], check=True, capture_output=True, text=True)
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
                           check=True, capture_output=True, text=True).stdout
     ops = Counter(re.findall(r"\b(" + "|".join(FP64_OPCODES) + r")(?=[ .])", sass))
     return sum(ops.values()), dict(ops)
 
 
-def profile_tool():
-    """tools/torch_gibbs_profile.py as a module (its clock64 builds and
+def load_tool(name):
+    """tools/<name> as a module (the profile tools' clock64 builds and
     sparsity counts)."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        "torch_gibbs_profile.py")
-    spec = importlib.util.spec_from_file_location("torch_gibbs_profile", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", name)
+    spec = importlib.util.spec_from_file_location(name[:-3], path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     return tool
+
+
+def profile_tool():
+    """tools/torch_gibbs_profile.py as a module."""
+    return load_tool("torch_gibbs_profile.py")
 
 
 def step_cycles(module, call, steps):
@@ -780,6 +815,22 @@ def k_slot_minimum_us(device, k):
         return cuda_ms(lambda: posterior_gibbs_k_cuda.posterior_gibbs_k(jobs), reps=5)
 
     return (ms(2000) - ms(1000)) / (1000 * k) * 1e3
+
+
+def pair_step_minimum_us(device):
+    """Microseconds of one pair-sampler step with no work: a one-path
+    cluster's one chain at 4,000 steps less at 2,000, over 2,000."""
+    import torch
+
+    from rpvg_tpu_torch.ops import posterior_gibbs_cuda
+
+    one = torch.zeros(1, dtype=torch.float64, device=device)
+
+    def ms(steps):
+        jobs = posterior_gibbs_cuda.make_jobs(one, [0], [1], [1], [(1, steps // 2, steps // 2)], [1])
+        return cuda_ms(lambda: posterior_gibbs_cuda.posterior_gibbs(jobs), reps=10)
+
+    return (ms(4000) - ms(2000)) / 2000 * 1e3
 
 
 def gibbs_job_item(jobs, j):
@@ -1016,8 +1067,7 @@ def phase_posterior_kernel(torch, device, captured):
     clusters = posterior_cluster_set(256, seed=71, max_paths=120) + [posterior_wide_cluster(200, 73)]
     keys = prng.split(prng.prng_key(72), len(clusters))
     jobs = posteriors.posterior_gibbs_jobs(clusters, keys, device)
-    plan = posterior_gibbs_cuda.plan_launches(jobs.host["n_cols"], jobs.host["n_chains"])
-    unstaged = sum(lc.tasks.size for lc in plan if not lc.staged)
+    unstaged = sum(lc.tasks.size for lc in jobs.launches if not lc.staged)
     kernel = posterior_gibbs_cuda.posterior_gibbs(jobs).cpu().numpy()
     plain = posterior_gibbs_cuda.posterior_gibbs_plain(jobs).cpu().numpy()
     diverged = diverged_clusters(jobs, kernel, plain)
@@ -1075,6 +1125,25 @@ def phase_posterior_kernel(torch, device, captured):
             raise AssertionError(f"main-path clusters: total variation {worst_tv:.3f} vs plain")
     main_ms = cuda_ms(lambda: posterior_gibbs_cuda.posterior_gibbs(main), reps=5)
     main_bound, main_by = posterior_bound(main)
+    h = main.host
+    steps = h["n_burn"] + h["n_its"]
+    slow = int(np.lexsort((h["n_cols"], steps))[-1])
+    minimum_us = pair_step_minimum_us(device)
+    floor_ms = int(steps[slow]) * minimum_us / 1e3
+    launches = [
+        f"{lc.tasks.size} clusters in {len(h['block_starts'][i]) - 1} blocks"
+        + (f" staging up to {lc.smem_bytes} bytes ({posterior_gibbs_cuda.blocks_per_sm(lc.smem_bytes)} "
+           f"blocks per SM)" if lc.staged else " with tables in the global scratch")
+        for i, lc in enumerate(main.launches)
+    ]
+    log(
+        f"phase 8: the --use-hap-gibbs run's clusters in {len(main.launches)} launch(es): "
+        + "; ".join(launches)
+        + f"; its slowest cluster (P {int(h['n_cols'][slow])}, {int(h['n_chains'][slow])} chains of "
+        f"{int(h['n_burn'][slow])} + {int(h['n_its'][slow])} steps) has a dependent-chain floor of "
+        f"{int(steps[slow])} x {minimum_us:.4f} us = {floor_ms:.5f} ms (a step with no work: a "
+        f"one-path cluster's chain, 4,000 less 2,000 steps)"
+    )
     log(
         f"phase 8: the --use-hap-gibbs run's {main.n_clusters} clusters (P median "
         f"{int(np.median(main.host['n_cols']))} max {int(main.host['n_cols'].max())}): vs plain "
@@ -1088,6 +1157,7 @@ def phase_posterior_kernel(torch, device, captured):
         "bound_by": bound_by, "diverged_clusters": len(diverged),
         "main_path_clusters": main.n_clusters, "main_path_diverged_clusters": len(main_diverged),
         "main_path_clusters_ms": main_ms, "main_path_clusters_bound_ms": main_bound,
+        "step_minimum_us": minimum_us, "main_path_slowest_cluster_floor_ms": floor_ms,
     }
 
 
@@ -1119,86 +1189,105 @@ def histogram_of_paths(cols):
     }
 
 
-def phase_group_scores_kernel(torch, device, captured, per_log):
+def phase_group_scores_kernel(torch, device, captured, over, per_log, table_per_log):
     """Phase 11: the group-score kernel against its plain version on 256
     seeded clusters per group size 1, 3, 4, 5 (P up to 32, 16 at k = 5;
-    one of 512 rows x P_max, rows past shared memory; one with -inf
-    groups), every score within rtol 1e-10 and -inf where plain is; timed
-    at k = 3 beside group_scores_bound, and again with every group reading
-    path 0 (a broadcast table: the same logs without bank conflicts);
-    then on the clusters phase 10's two enumeration runs handed it."""
+    one of 512 rows x P_max; one with -inf groups), every score within
+    rtol 1e-10 and -inf where plain is, bitwise the same on a second run;
+    timed at k = 3 beside group_scores_bound for R x G logs (libdevice's
+    log, ``per_log`` FP64 instructions) and for the logs the kernel
+    computes (R x P + the rows U of every group, its own log,
+    ``table_per_log``); then on the clusters phase 10's two enumeration
+    runs handed it (their zero and U shares, the warps' busy lanes, both
+    counts, the blocks per SM), and on the clusters the haplotypes -y 3
+    run handed the host engine, ``over`` (held and timed likewise; their
+    route is unchanged)."""
     import numpy as np
 
     from rpvg_tpu_torch.ops import group_scores_cuda
     from rpvg_tpu_torch.testing import enumeration_cluster_set
+
+    def held(packed, label):
+        kernel = group_scores_cuda.group_scores(packed)
+        again = group_scores_cuda.group_scores(packed)
+        torch.cuda.synchronize()
+        if not torch.equal(kernel.view(torch.int64), again.view(torch.int64)):
+            raise AssertionError(f"{label}: group-score kernel is not bitwise the same across runs")
+        plain, plain_ms = timed_once(lambda: group_scores_cuda.group_scores_ragged_plain(packed))
+        max_abs, max_rel, n_bad = compare_scores(kernel.cpu().numpy(), plain.cpu().numpy())
+        if n_bad:
+            raise AssertionError(f"{label}: group-score kernel disagrees with plain version")
+        return max_abs, max_rel, plain_ms, int(np.isneginf(plain.cpu().numpy()).sum())
+
+    def bounds(packed):
+        dense, factored, busy, zeros = group_score_logs(packed)
+        rg_ms, _ = group_scores_bound(packed, per_log)
+        ms, by = group_scores_bound(packed, table_per_log, factored)
+        return {"logs_rg": dense, "logs": factored, "lanes_busy": busy, "zero_share": zeros,
+                "bound_rg_ms": rg_ms, "bound_ms": ms, "bound_by": by}
 
     worst = 0.0
     seeded = None
     for k in (1, 3, 4, 5):
         clusters = enumeration_cluster_set(256, seed=80 + k, group_size=k)
         packed = group_scores_cuda.make_clusters([c[:3] for c in clusters], k, device)
-        kernel = group_scores_cuda.group_scores(packed)
-        again = group_scores_cuda.group_scores(packed)
-        torch.cuda.synchronize()
-        if not torch.equal(kernel, again):
-            raise AssertionError("group-score kernel is not deterministic across runs")
-        plain, plain_ms = timed_once(lambda: group_scores_cuda.group_scores_ragged_plain(packed))
-        max_abs, max_rel, n_bad = compare_scores(kernel.cpu().numpy(), plain.cpu().numpy())
+        max_abs, max_rel, plain_ms, neginf = held(packed, f"k = {k}")
         h = packed.host
         log(
             f"phase 11: group scores, k = {k}: {len(clusters)} seeded clusters (P "
             f"{int(h['n_cols'].min())}-{int(h['n_cols'].max())}, R max {int(h['n_rows'].max())}, "
-            f"{int(h['out_offsets'][-1])} groups, {int(np.isneginf(plain.cpu().numpy()).sum())} "
-            f"-inf), kernel vs plain max abs {max_abs:.3e} max rel {max_rel:.3e}, {n_bad} out of "
-            f"rtol 1e-10 or -inf"
+            f"{int(h['out_offsets'][-1])} groups, {neginf} -inf), kernel vs plain max abs "
+            f"{max_abs:.3e} max rel {max_rel:.3e}, every score within rtol 1e-10 and -inf where "
+            f"plain is; bitwise the same on a second run"
         )
-        if n_bad:
-            raise AssertionError(f"group-score kernel disagrees with plain version at k = {k}")
         worst = max(worst, max_abs)
         if k == 3:
             seeded, seeded_plain_ms = packed, plain_ms
     kernel_ms = cuda_ms(lambda: group_scores_cuda.group_scores(seeded), reps=10)
-    plain_ms = seeded_plain_ms
-    bound_ms, bound_by = group_scores_bound(seeded, per_log)
-    broadcast = group_scores_cuda.GroupClusters(
-        **{**seeded.__dict__, "table": torch.zeros_like(seeded.table)}
-    )
-    broadcast_ms = cuda_ms(lambda: group_scores_cuda.group_scores(broadcast), reps=10)
+    seeded_bounds = bounds(seeded)
+    blocks = group_scores_cuda.blocks_per_sm(3)
     log(
         f"phase 11: group scores at k = 3 on the seeded set: kernel {kernel_ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms (CUDA events), bound {bound_ms:.5f} ms ({bound_by}; {per_log} FP64 "
-        f"instructions per log); every group reading path 0 (no bank conflicts) "
-        f"{broadcast_ms:.3f} ms"
+        f"{seeded_plain_ms:.3f} ms (CUDA events); bound {seeded_bounds['bound_ms']:.5f} ms "
+        f"({seeded_bounds['bound_by']}; the {seeded_bounds['logs']} logs the kernel computes at "
+        f"{table_per_log} FP64 instructions each), {seeded_bounds['bound_rg_ms']:.5f} ms for "
+        f"R x G = {seeded_bounds['logs_rg']} logs at libdevice's {per_log}; {blocks} blocks of "
+        f"{group_scores_cuda.WARPS_PER_BLOCK} warps per SM"
     )
-
-    report = {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "broadcast_table_ms": broadcast_ms}
-    for run, calls in captured.items():
+    report = {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": seeded_plain_ms,
+              "bound_ms": seeded_bounds["bound_ms"], "bound_by": seeded_bounds["bound_by"],
+              "bound_rg_ms": seeded_bounds["bound_rg_ms"], "blocks_per_sm": blocks}
+    sets = dict(captured)
+    if len(over.get("haplotypes", [])) == 0:
+        raise AssertionError("the haplotypes -y 3 run handed the host engine no cluster")
+    for run, calls in sets.items():
         if len(calls) != 1:
             raise AssertionError(f"{run}: phase B called the group scorer {len(calls)} times")
-        (packed,) = calls
-        kernel = group_scores_cuda.group_scores(packed)
+    sets["over_limit"] = [group_scores_cuda.make_clusters(over["haplotypes"], 3, device)]
+    for run, (packed,) in sets.items():
+        max_abs, max_rel, plain_ms, _ = held(packed, run)
         run_ms = cuda_ms(lambda: group_scores_cuda.group_scores(packed), reps=5)
-        t0 = time.perf_counter()
-        plain = group_scores_cuda.group_scores_ragged_plain(packed)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        max_abs, max_rel, n_bad = compare_scores(kernel.cpu().numpy(), plain.cpu().numpy())
-        run_bound, run_by = group_scores_bound(packed, per_log)
+        b = bounds(packed)
         h = packed.host
+        what = ("the clusters the haplotypes -y 3 run handed the host engine" if run == "over_limit"
+                else f"the {run} run's clusters")
         log(
-            f"phase 11: the {run} run's {packed.n_clusters} clusters (P median "
-            f"{int(np.median(h['n_cols']))} max {int(h['n_cols'].max())}, "
-            f"{int(h['out_offsets'][-1])} groups): vs plain max abs {max_abs:.3e} max rel "
-            f"{max_rel:.3e}, {n_bad} out of rtol 1e-10 or -inf, plain {plain_s:.2f} s; re-timed: "
-            f"kernel {run_ms:.3f} ms (CUDA events), bound {run_bound:.5f} ms ({run_by})"
+            f"phase 11: {what}: {packed.n_clusters} (P median {int(np.median(h['n_cols']))} max "
+            f"{int(h['n_cols'].max())}, R max {int(h['n_rows'].max())}, "
+            f"{int(h['out_offsets'][-1])} groups); {b['zero_share']:.4f} of the probabilities are "
+            f"zero; the kernel computes {b['logs']} logs, {b['logs'] / b['logs_rg']:.4f} of R x G "
+            f"= {b['logs_rg']}, its warps' lanes {b['lanes_busy']:.4f} busy; vs plain max abs "
+            f"{max_abs:.3e} max rel {max_rel:.3e}, none out of rtol 1e-10 or -inf, bitwise the "
+            f"same on a second run, plain {plain_ms:.1f} ms; kernel {run_ms:.3f} ms (CUDA "
+            f"events), bound {b['bound_ms']:.5f} ms ({b['bound_by']}; R x G at libdevice's log "
+            f"{b['bound_rg_ms']:.5f} ms)"
         )
-        if n_bad:
-            raise AssertionError(f"{run}: group-score kernel disagrees with plain version")
         report["max_abs_err"] = max(report["max_abs_err"], max_abs)
         report[f"{run}_clusters"] = packed.n_clusters
         report[f"{run}_ms"] = run_ms
-        report[f"{run}_bound_ms"] = run_bound
+        report[f"{run}_plain_ms"] = plain_ms
+        for key in ("bound_ms", "bound_rg_ms", "logs", "logs_rg", "lanes_busy", "zero_share"):
+            report[f"{run}_{key}"] = b[key]
     return report
 
 
@@ -1782,15 +1871,21 @@ def phase_full_width_ploidy(torch, device, cli, check_estimate_file, bench, work
     wraps both entries), and so are the P of phase B's clusters.  Prints
     per run the phase-4 line, then phase B's engine, the histogram of P
     and the clusters the host enumeration engine took, with its seconds.
-    Returns (scores captured by run, k-slot jobs captured, launches of
-    each kernel in its main-path run)."""
+    Returns (scores captured by run, the host engine's clusters captured
+    by run, k-slot jobs captured, launches of each kernel in its main-path
+    run)."""
     from rpvg_tpu_torch.infer import batched_models, posteriors
     from rpvg_tpu_torch.ops import group_scores_cuda, posterior_gibbs_k_cuda
 
     score, sample = group_scores_cuda.group_scores, posterior_gibbs_k_cuda.posterior_gibbs_k
     full, gibbs = batched_models.full_posteriors_batched, batched_models.path_group_posteriors_gibbs_batched
+    host_engine = posteriors.path_group_posteriors_full
     current = [None]
-    scores, jobs, paths = {}, {}, {}
+    scores, jobs, paths, engine_inputs = {}, {}, {}, {}
+
+    def capture_over(probs, noise, counts, path_counts, group_size):
+        engine_inputs.setdefault(current[0], []).append((probs, noise, counts))
+        return host_engine(probs, noise, counts, path_counts, group_size)
 
     def capture_scores(clusters):
         scores.setdefault(current[0], []).append(clusters)
@@ -1812,6 +1907,7 @@ def phase_full_width_ploidy(torch, device, cli, check_estimate_file, bench, work
     group_scores_cuda.group_scores, posterior_gibbs_k_cuda.posterior_gibbs_k = capture_scores, capture_jobs
     batched_models.full_posteriors_batched = record_full
     batched_models.path_group_posteriors_gibbs_batched = record_gibbs
+    posteriors.path_group_posteriors_full = capture_over
     try:
         for key, model, info, extra in PLOIDY_RUNS:
             current[0] = key
@@ -1836,8 +1932,9 @@ def phase_full_width_ploidy(torch, device, cli, check_estimate_file, bench, work
         group_scores_cuda.group_scores, posterior_gibbs_k_cuda.posterior_gibbs_k = score, sample
         batched_models.full_posteriors_batched = full
         batched_models.path_group_posteriors_gibbs_batched = gibbs
+        posteriors.path_group_posteriors_full = host_engine
     return (
-        scores, jobs.get("hap-gibbs", []),
+        scores, engine_inputs, jobs.get("hap-gibbs", []),
         launches["haplotypes"]["group_launches"], launches["hap-gibbs"]["posterior_k_launches"],
     )
 
@@ -2302,8 +2399,10 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool, \
             tempfile.TemporaryDirectory(prefix="rpvg_probe_") as probe_dir:
         probe = pool.submit(fp64_log_instructions, probe_dir)
+        table_probe = pool.submit(fp64_log_instructions, probe_dir, TABLE_LOG_PROBE)
         builds = list(pool.map(lambda name: build.build_library(name, force=True), names))
         per_log, log_ops = probe.result()
+        table_per_log, table_log_ops = table_probe.result()
     build_s = time.perf_counter() - t0
     for name, (lib_path, ptxas) in zip(names, builds):
         ptxas_lines = [ln.strip() for ln in ptxas.splitlines() if ln.strip()]
@@ -2314,7 +2413,8 @@ def main() -> int:
             f"{build_s:.1f}s); ptxas: " + " | ".join(ptxas_lines)
         )
     log(f"phase 1: one float64 log is {per_log} FP64 instructions in the SASS of a one-log "
-        f"kernel built for sm_90a ({log_ops})")
+        f"kernel built for sm_90a ({log_ops}); the group scorer's own log (csrc/log_f64.cuh) "
+        f"{table_per_log} ({table_log_ops})")
 
     # Phase 2: ragged kernel vs plain version.
     em = phase_kernel(torch, device)
@@ -2453,7 +2553,7 @@ def main() -> int:
         posterior_launches = runs["haplotypes"][1]["posterior_launches"]
 
         # Phase 10: ploidy 3 at full width on phase 4's dataset.
-        scores_captured, k_captured, group_launches, k_launches = phase_full_width_ploidy(
+        scores_captured, over_captured, k_captured, group_launches, k_launches = phase_full_width_ploidy(
             torch, device, cli, check_estimate_file, bench, work, threads
         )
 
@@ -2471,7 +2571,8 @@ def main() -> int:
     # Phases 7 and 8: the two Gibbs samplers; 11 and 12: the ploidy-k kernels.
     gibbs = phase_gibbs_kernel(torch, device, gibbs_captured)
     posterior = phase_posterior_kernel(torch, device, posterior_captured)
-    scores = phase_group_scores_kernel(torch, device, scores_captured, per_log)
+    scores = phase_group_scores_kernel(torch, device, scores_captured, over_captured, per_log,
+                                       table_per_log)
     k_slot = phase_posterior_k_kernel(torch, device, k_captured, per_log)
 
 
@@ -2579,6 +2680,8 @@ def main() -> int:
             "main_path_diverged_clusters": posterior["main_path_diverged_clusters"],
             "main_path_clusters_ms": posterior["main_path_clusters_ms"],
             "main_path_clusters_bound_ms": posterior["main_path_clusters_bound_ms"],
+            "step_minimum_us": posterior["step_minimum_us"],
+            "main_path_slowest_cluster_floor_ms": posterior["main_path_slowest_cluster_floor_ms"],
         },
         {
             "name": group_scores_cuda.KERNEL_NAME,
@@ -2594,12 +2697,19 @@ def main() -> int:
             "library_ms": None,
             "launches_per_main_path_run": group_launches,
             "main_path_run": "haplotypes -y 3",
-            "fp64_instructions_per_log": per_log,
-            "broadcast_table_ms": scores["broadcast_table_ms"],
+            "fp64_instructions_per_log": table_per_log,
+            "fp64_instructions_per_libdevice_log": per_log,
+            "bound_rg_ms": scores["bound_rg_ms"],
+            "blocks_per_sm": scores["blocks_per_sm"],
             "main_path_clusters": scores["haplotypes_clusters"],
             "main_path_clusters_ms": scores["haplotypes_ms"],
-            "main_path_clusters_bound_ms": scores["haplotypes_bound_ms"],
+            **{f"main_path_clusters_{key}": scores[f"haplotypes_{key}"] for key in (
+                "bound_ms", "bound_rg_ms", "logs", "logs_rg", "lanes_busy", "zero_share")},
             "nested_run_clusters_ms": scores["haplotype-transcripts_ms"],
+            "over_limit_clusters": scores["over_limit_clusters"],
+            "over_limit_clusters_ms": scores["over_limit_ms"],
+            "over_limit_clusters_plain_ms": scores["over_limit_plain_ms"],
+            "over_limit_clusters_bound_ms": scores["over_limit_bound_ms"],
         },
         {
             "name": posterior_gibbs_k_cuda.KERNEL_NAME,

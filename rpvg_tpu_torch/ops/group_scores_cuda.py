@@ -15,7 +15,10 @@ ragged (:class:`GroupClusters`); the plain version
 padded (B, R, P) batches, and :func:`group_scores_ragged_plain` runs it
 over ragged clusters in the JAX package's padded buckets.  A padded row
 adds 0 * log(1) = 0, so both layouts give each cluster the same sums up
-to their order.
+to their order.  :func:`group_scores_factored_plain` is the kernel's
+factoring of the same sum in plain PyTorch (the last slot's logs once
+per cluster, a log of its own only for the rows a group's other slots
+touch), held against both by the tests.
 
 :func:`group_scores` dispatches on the clusters' device: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version.
@@ -35,27 +38,20 @@ import torch
 
 from rpvg_tpu_torch.infer.posteriors import _ceil_pow2, _ceil_pow4, _log_or_neg_inf
 from rpvg_tpu_torch.ops import build
-from rpvg_tpu_torch.ops.em_cuda import (
-    Launch,
-    concat_to_device,
-    launch_task_ids,
-    offsets as _offsets,
-    run_launches,
-    to_device,
-)
+from rpvg_tpu_torch.ops.em_cuda import concat_to_device, offsets as _offsets, to_device
 
-# Kernel launches, and clusters they covered, since the last reset.  Only
-# a kernel launch adds to them.
+# Kernel launches (a call launches two grids, the pre-pass and the
+# scoring grid, each counted), and clusters they covered, since the last
+# reset.  Only a kernel launch adds to them.
 LAUNCHES = 0
 CLUSTERS = 0
 
 KERNEL_NAME = "group_scores"
-# Groups per block, one thread each.
-TILE = 128
-# Shared memory of one block: rows of the cluster's probabilities are
-# staged a pass at a time (48 KB needs no opt-in and leaves room for
-# several blocks per SM).
-SMEM_BYTES = 48 * 1024
+# Warps per block of the scoring grid (csrc/group_scores.cu kWarps): 256 /
+# S groups a block, S warps per tile of 32 groups.
+WARPS_PER_BLOCK = 8
+# Rows per word of the pre-pass (one bit each in the row masks).
+WORD = 32
 _fn = None
 
 
@@ -75,11 +71,14 @@ class GroupClusters:
     (n_rows[c], n_cols[c]), its noise and counts at ``row_offsets[c]``,
     its groups the rows of ``table`` from ``table_offsets[c]`` (int32,
     k per group; one table per distinct P), and its n_groups[c] scores go
-    to ``out_offsets[c]``.  The kernel's blocks are planned here once:
-    tile t covers groups ``tile_first[t]`` onwards of cluster
-    ``tile_cluster[t]``, and ``launches`` list their tiles by index
-    (``tile_ids``, launch by launch).  ``host`` holds the integer arrays
-    on the host, by name."""
+    to ``out_offsets[c]``.  The kernel's pre-pass takes a block per word
+    of 32 rows (cluster c's from ``word_offsets[c]``; ``word_cluster``
+    names each word's cluster) and writes per word P sums at
+    ``part_offsets[c]`` and P + 1 bit words at ``mask_offsets[c]``; its
+    scoring grid a block per 256 / S groups of a cluster, S =
+    ``row_splits[c]`` warps per tile of 32 groups (``block_cluster``,
+    ``block_first``; :func:`plan_blocks`).  ``host`` holds the integer
+    arrays on the host, by name."""
 
     probs: torch.Tensor          # float64 (sum R_c P_c,)
     noise: torch.Tensor          # float64 (sum R_c,)
@@ -92,10 +91,13 @@ class GroupClusters:
     table_offsets: torch.Tensor  # int64 (n,)
     n_groups: torch.Tensor       # int64 (n,)
     out_offsets: torch.Tensor    # int64 (n + 1,)
-    tile_cluster: torch.Tensor   # int64 (tiles,)
-    tile_first: torch.Tensor     # int64 (tiles,)
-    tile_ids: torch.Tensor       # int64 (tiles,)
-    launches: List[Launch]
+    word_offsets: torch.Tensor   # int64 (n + 1,)
+    word_cluster: torch.Tensor   # int64 (words,)
+    part_offsets: torch.Tensor   # int64 (n + 1,)
+    mask_offsets: torch.Tensor   # int64 (n + 1,)
+    row_splits: torch.Tensor     # int64 (n,)
+    block_cluster: torch.Tensor  # int64 (blocks,)
+    block_first: torch.Tensor    # int64 (blocks,)
     group_size: int
     host: dict
 
@@ -109,7 +111,8 @@ class GroupClusters:
 
 
 _FIELDS = ("mat_offsets", "row_offsets", "n_rows", "n_cols", "table_offsets", "n_groups",
-           "out_offsets")
+           "out_offsets", "word_offsets", "word_cluster", "part_offsets", "mask_offsets",
+           "row_splits", "block_cluster", "block_first")
 
 
 def make_clusters(inputs: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], group_size: int,
@@ -131,6 +134,8 @@ def make_clusters(inputs: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], g
         table_offsets[c] = tables[P]
     n_groups = np.array([math.comb(int(P) + group_size - 1, group_size) for P in cols],
                         dtype=np.int64)
+    words = -(-rows // WORD)
+    block_cluster, block_first, row_splits = plan_blocks(rows, n_groups)
     host = {
         "mat_offsets": _offsets(rows * cols)[:-1],
         "row_offsets": _offsets(rows)[:-1],
@@ -139,18 +144,20 @@ def make_clusters(inputs: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], g
         "table_offsets": table_offsets,
         "n_groups": n_groups,
         "out_offsets": _offsets(n_groups),
+        "word_offsets": _offsets(words),
+        "word_cluster": np.repeat(np.arange(n, dtype=np.int64), words),
+        "part_offsets": _offsets(words * cols),
+        "mask_offsets": _offsets(words * (cols + 1)),
+        "row_splits": row_splits,
+        "block_cluster": block_cluster,
+        "block_first": block_first,
     }
-    launches, tile_cluster, tile_first = plan_tiles(cols, n_groups)
     return GroupClusters(
         probs=concat_to_device([p for p, _, _ in inputs], device),
         noise=concat_to_device([x for _, x, _ in inputs], device),
         counts=concat_to_device([x for _, _, x in inputs], device),
         table=to_device(np.concatenate(pieces) if pieces else np.zeros(0, np.int32), device),
         **{name: to_device(host[name], device) for name in _FIELDS},
-        tile_cluster=to_device(tile_cluster, device),
-        tile_first=to_device(tile_first, device),
-        tile_ids=launch_task_ids(launches, device),
-        launches=launches,
         group_size=int(group_size),
         host=host,
     )
@@ -175,43 +182,58 @@ def _kernel_fn():
     if _fn is None:
         fn = build.load_library(KERNEL_NAME).rpvg_group_scores_f64
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int64] * 5 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 7
         _fn = fn
     return _fn
 
 
-def plan_launches(cols) -> List[Launch]:
-    """One launch for the clusters whose probability rows are staged in
-    shared memory a pass at a time (a row of P doubles fits
-    ``SMEM_BYTES``) and one for the rest, which read them from global
-    memory.  ``tasks`` are cluster indices."""
-    cols = np.asarray(cols, dtype=np.int64).reshape(-1)
-    staged = 8 * cols <= SMEM_BYTES
-    launches = []
-    for on_chip in (True, False):
-        members = np.flatnonzero(staged == on_chip)
-        if members.size:
-            launches.append(Launch(TILE, on_chip, members, SMEM_BYTES if on_chip else 0))
-    return launches
+def blocks_per_sm(group_size: int) -> int:
+    """Blocks of the scoring grid (``WARPS_PER_BLOCK`` warps) resident on
+    one SM at ``group_size``, by the occupancy API."""
+    fn = build.load_library(KERNEL_NAME).rpvg_group_scores_blocks_per_sm
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int64]
+    return int(fn(int(group_size)))
 
 
-def plan_tiles(cols, n_groups) -> Tuple[List[Launch], np.ndarray, np.ndarray]:
-    """The kernel's blocks: :func:`plan_launches` with each cluster cut
-    into tiles of ``TILE`` groups.  Returns (launches whose ``tasks`` are
-    tile indices, tile -> cluster, tile -> first group)."""
+def row_splits(rows) -> np.ndarray:
+    """Warps S (1, 2, 4 or 8) that share a tile of 32 groups, each
+    walking 1 / S of the row words: one up to 7 words, then 4 words or
+    more a warp."""
+    words = -(-np.asarray(rows, dtype=np.int64) // WORD)
+    split = np.ones_like(words)
+    for s in (2, 4, 8):
+        split[words >= 4 * s] = s
+    return split
+
+
+def plan_blocks(rows, n_groups) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The scoring grid's blocks: every cluster's groups cut into blocks
+    of 256 / S consecutive groups (:func:`row_splits`), the clusters whose
+    warps walk the most row words first (the longest blocks start first),
+    then the most rows x groups.  Returns (block -> cluster, block -> first
+    group, per cluster S)."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
     n_groups = np.asarray(n_groups, dtype=np.int64).reshape(-1)
-    launches, clusters, firsts = [], [], []
-    at = 0
-    for launch in plan_launches(cols):
-        per = -(-n_groups[launch.tasks] // TILE)
-        clusters.append(np.repeat(launch.tasks, per))
-        firsts.append((np.arange(per.sum()) - np.repeat(_offsets(per)[:-1], per)) * TILE)
-        launches.append(Launch(launch.threads, launch.staged,
-                               np.arange(at, at + clusters[-1].size), launch.smem_bytes))
-        at += clusters[-1].size
-    if not launches:
-        return [], np.zeros(0, np.int64), np.zeros(0, np.int64)
-    return launches, np.concatenate(clusters), np.concatenate(firsts).astype(np.int64)
+    split = row_splits(rows)
+    words = -(-rows // WORD)
+    per_warp = -(-words // split)
+    order = np.lexsort((-(rows * n_groups), -per_warp))
+    size = 32 * WARPS_PER_BLOCK // split[order]
+    per = -(-n_groups[order] // size)
+    cluster = np.repeat(order, per)
+    first = (np.arange(int(per.sum()), dtype=np.int64) - np.repeat(_offsets(per)[:-1], per))
+    return cluster.astype(np.int64), first * np.repeat(size, per), split
+
+
+_LOG_TABLES: Dict[torch.device, torch.Tensor] = {}
+
+
+def _log_table_on(device: torch.device) -> torch.Tensor:
+    """:func:`log_table` on ``device``, uploaded once."""
+    table = _LOG_TABLES.get(device)
+    if table is None:
+        table = _LOG_TABLES[device] = to_device(log_table().reshape(-1), device)
+    return table
 
 
 def _check(clusters: GroupClusters) -> None:
@@ -222,7 +244,7 @@ def _check(clusters: GroupClusters) -> None:
             raise ValueError(f"group_scores: {name} must be contiguous float64 on {device}")
     if clusters.table.dtype != torch.int32 or not clusters.table.is_contiguous():
         raise ValueError("group_scores: table must be contiguous int32")
-    for name in _FIELDS + ("tile_cluster", "tile_first", "tile_ids"):
+    for name in _FIELDS:
         t = getattr(clusters, name)
         if t.dtype != torch.int64 or not t.is_contiguous() or t.device != device:
             raise ValueError(f"group_scores: {name} must be contiguous int64 on {device}")
@@ -230,28 +252,47 @@ def _check(clusters: GroupClusters) -> None:
         raise ValueError("group_scores: group size must be at least 1")
 
 
+def _arguments(clusters: GroupClusters) -> tuple:
+    """The kernel's arguments but the output and the stream, checked and
+    its scratch allocated at the first launch of ``clusters`` and kept in
+    ``host`` (a call's host work is then one allocation and the call)."""
+    args = clusters.host.get("kernel_arguments")
+    if args is None:
+        _check(clusters)
+        host = clusters.host
+        device = clusters.device
+        scratch = (
+            torch.empty(max(2, 2 * clusters.probs.numel()), dtype=torch.float64, device=device),
+            torch.empty(max(2, 2 * clusters.noise.numel()), dtype=torch.float64, device=device),
+            torch.empty(max(1, int(host["part_offsets"][-1])), dtype=torch.float64, device=device),
+            torch.empty(max(1, int(host["mask_offsets"][-1])), dtype=torch.int32, device=device),
+            _log_table_on(device),
+        )
+        args = (
+            clusters.probs.data_ptr(), clusters.noise.data_ptr(), clusters.counts.data_ptr(),
+            clusters.table.data_ptr(),
+            *(getattr(clusters, name).data_ptr() for name in _FIELDS),
+            int(host["word_cluster"].size), int(host["block_cluster"].size),
+            clusters.group_size, *(t.data_ptr() for t in scratch),
+        )
+        host["kernel_scratch"] = scratch
+        host["kernel_arguments"] = args
+    return args
+
+
 def _launch(clusters: GroupClusters) -> torch.Tensor:
     global LAUNCHES, CLUSTERS
-    _check(clusters)
-    out = torch.empty(int(clusters.host["out_offsets"][-1]), dtype=torch.float64,
-                      device=clusters.device)
-    if not clusters.launches:
+    host = clusters.host
+    device = clusters.device
+    out = torch.empty(int(host["out_offsets"][-1]), dtype=torch.float64, device=device)
+    if host["block_cluster"].size == 0:
         return out
-
-    def call(launch: Launch, ids: int, stream: int) -> int:
-        return _kernel_fn()(
-            clusters.probs.data_ptr(), clusters.noise.data_ptr(), clusters.counts.data_ptr(),
-            clusters.table.data_ptr(), clusters.mat_offsets.data_ptr(),
-            clusters.row_offsets.data_ptr(), clusters.n_rows.data_ptr(),
-            clusters.n_cols.data_ptr(), clusters.table_offsets.data_ptr(),
-            clusters.n_groups.data_ptr(), clusters.out_offsets.data_ptr(),
-            clusters.tile_cluster.data_ptr(), clusters.tile_first.data_ptr(), ids,
-            int(launch.tasks.size), clusters.group_size, launch.threads, int(launch.staged),
-            launch.smem_bytes, out.data_ptr(), stream,
-        )
-
-    run_launches(KERNEL_NAME, clusters.launches, clusters.tile_ids, call)
-    LAUNCHES += len(clusters.launches)
+    args = _arguments(clusters)
+    with torch.cuda.device(device):
+        rc = _kernel_fn()(*args, out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{KERNEL_NAME} kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 2 if host["word_cluster"].size else 1
     CLUSTERS += clusters.n_clusters
     return out
 
@@ -320,3 +361,101 @@ def group_scores_ragged_plain(clusters: GroupClusters) -> torch.Tensor:
                 o0, o1 = int(host["out_offsets"][c]), int(host["out_offsets"][c + 1])
                 out[o0:o1] = scores[b][valid]
     return out
+
+
+def group_scores_factored_plain(probs: torch.Tensor, noise: torch.Tensor, counts: torch.Tensor,
+                                group_size: int) -> torch.Tensor:
+    """(G,) scores of one cluster, probs (R, P), noise (R,), counts (R,),
+    as ``csrc/group_scores.cu`` factors them: with the last slot l's logs
+    L[r, l] = log(noise[r] + probs[r, l] / k) over the rows of positive
+    noise and T[l] = sum_r counts[r] L[r, l], a group scores
+
+        T[l] + sum_{r in U(g)} counts[r] (log(noise[r] + slot sum / k) - L[r, l])
+
+    where U(g) holds the rows of non-positive noise (their own term,
+    without L) and the rows of nonzero count where a path of the first
+    k - 1 slots has a nonzero probability; every other row's slot sum is
+    probs[r, l] exactly.  The slot sum runs in slot order and is scaled
+    by 1 / k."""
+    R, P = probs.shape
+    k = int(group_size)
+    idx = torch.from_numpy(group_table(P, k).astype(np.int64)).to(probs.device)
+    inv_k = 1.0 / k
+    bad = ~(noise > 0)
+    live = (probs != 0) & ((counts != 0) | bad)[:, None]
+    logs = torch.where(bad[:, None], 0.0, _log_or_neg_inf(noise[:, None] + probs * inv_k))
+    totals = (torch.where(bad, 0.0, counts)[:, None] * logs).sum(dim=0)
+    last = idx[:, -1]
+    in_u = bad[:, None].expand(R, idx.shape[0])
+    slot_sum = probs[:, last]
+    if k > 1:
+        slot_sum = probs[:, idx[:, 0]]
+        in_u = in_u | live[:, idx[:, 0]]
+        for j in range(1, k - 1):
+            slot_sum = slot_sum + probs[:, idx[:, j]]
+            in_u = in_u | live[:, idx[:, j]]
+        slot_sum = slot_sum + probs[:, last]
+    full = _log_or_neg_inf(noise[:, None] + slot_sum * inv_k)
+    term = torch.where(bad[:, None], full, full - logs[:, last])
+    return totals[last] + torch.where(in_u, counts[:, None] * term, 0.0).sum(dim=0)
+
+
+# ----------------------------------------------- the kernel's log
+
+
+LOG_TABLE_BIAS = 37
+LOG_TABLE_SIZE = 91
+
+
+@functools.lru_cache(maxsize=None)
+def log_table() -> np.ndarray:
+    """(91, 2) float64 table of ``csrc/log_f64.cuh``: for j = -37 .. 53,
+    c = 1 / (1 + j / 128) rounded to float64 and l = -log(c) (1 and 0 at
+    j = 0)."""
+    j = np.arange(-LOG_TABLE_BIAS, LOG_TABLE_SIZE - LOG_TABLE_BIAS, dtype=np.float64)
+    c = 1.0 / (1.0 + j / 128.0)
+    return np.stack([c, -np.log(c)], axis=1)
+
+
+def table_log(x: np.ndarray) -> np.ndarray:
+    """``csrc/log_f64.cuh`` log_pos in numpy, step for step, for finite
+    x > 0 (numpy has no fused multiply-add: :func:`_fma` forms the
+    product exactly and rounds once more at most)."""
+    x = np.asarray(x, dtype=np.float64)
+    tiny = x < 2.2250738585072014e-308
+    x = np.where(tiny, np.where(tiny, x, 0.0) * 18014398509481984.0, x)
+    bits = x.view(np.uint64)
+    frac = bits & np.uint64(0x000FFFFFFFFFFFFF)
+    high = frac >= np.uint64(0x6A09E667F3BCD)
+    e = (bits >> np.uint64(52)).astype(np.int64) - 1023 - np.where(tiny, 54, 0) + high
+    m = (frac | np.where(high, np.uint64(0x3FE0000000000000),
+                         np.uint64(0x3FF0000000000000))).view(np.float64)
+    j = np.where(high, ((frac >> np.uint64(45)) + np.uint64(1)) >> np.uint64(1),
+                 ((frac >> np.uint64(44)) + np.uint64(1)) >> np.uint64(1)).astype(np.int64)
+    j = j - np.where(high, 64, 0)
+    c, l = log_table()[j + LOG_TABLE_BIAS].T
+    t = _fma(m, c, -1.0)
+    q = np.full_like(t, -1.0 / 8.0)
+    for coef in (1.0 / 7.0, -1.0 / 6.0, 1.0 / 5.0, -1.0 / 4.0, 1.0 / 3.0, -1.0 / 2.0):
+        q = _fma(q, t, coef)
+    log1p_t = _fma(t * t, q, t)
+    ed = e.astype(np.float64)
+    hi = _fma(ed, 6.93147180369123816490e-01, l)
+    lo = _fma(ed, 1.90821492927058770002e-10, log1p_t)
+    return hi + lo
+
+
+def _fma(a, b, c):
+    """a * b + c: the product exact by Dekker's splitting, then summed
+    with c and the product's error (within an ulp of one rounding)."""
+    a, b, c = np.broadcast_arrays(*(np.asarray(v, dtype=np.float64) for v in (a, b, c)))
+    split = 134217729.0  # 2^27 + 1
+    p = a * b
+    ah = a * split
+    ah = ah - (ah - a)
+    bh = b * split
+    bh = bh - (bh - b)
+    err = ((ah * bh - p) + ah * (b - bh) + (a - ah) * bh) + (a - ah) * (b - bh)
+    s = p + c
+    bb = s - p
+    return s + ((p - (s - bb)) + (c - bb) + err)

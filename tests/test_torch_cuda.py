@@ -398,18 +398,24 @@ def test_gibbs_readcount_on_packed_tasks_matches_fresh_upload(cuda):
         assert np.array_equal(a_noise, b_noise) and np.array_equal(a_paths, b_paths)
 
 
-@pytest.mark.parametrize("case", ["cluster_set", "over_shared_memory"])
+@pytest.mark.parametrize("case", ["cluster_set", "over_shared_memory", "packed"])
 def test_gibbs_posterior_kernel_matches_plain(cuda, case):
-    """Every sampled pair equal to the plain version's."""
+    """Every sampled pair equal to the plain version's: seeded clusters of
+    up to 28 paths; one of 200 paths (its CDFs do not
+    fit shared memory) beside a staged one; 120 clusters of up to 16
+    paths, several to a block."""
     clusters = posterior_cluster_set(48, seed=48)
     if case == "over_shared_memory":
-        # 200 x 200 scores: the CDFs do not fit shared memory.
         clusters = [posterior_wide_cluster(200, 49), clusters[3]]
+    if case == "packed":
+        clusters = posterior_cluster_set(120, seed=47, max_paths=16)
     keys = list(prng.split(prng.prng_key(5), len(clusters)))
     jobs = posteriors.posterior_gibbs_jobs(clusters, keys, cuda)
-    plan = posterior_gibbs_cuda.plan_launches(jobs.host["n_cols"], jobs.host["n_chains"])
+    plan = jobs.launches
     if case == "over_shared_memory":
-        assert not plan[0].staged
+        assert posterior_gibbs_cuda.table_bytes(200) > posterior_gibbs_cuda.SMEM_LIMIT
+    if case == "packed":
+        assert max(np.diff(jobs.host["block_starts"][0])) >= 8
     launches = posterior_gibbs_cuda.LAUNCHES
     kernel = posterior_gibbs_cuda.posterior_gibbs(jobs)
     torch.cuda.synchronize()
@@ -444,9 +450,9 @@ def test_gibbs_samplers_on_cuda_route(cuda):
 @pytest.mark.parametrize("k", [1, 3, 4, 5])
 def test_group_scores_kernel_matches_plain(cuda, k):
     """Seeded clusters of 1-32 paths (16 at k = 5), one of 512 rows x 32
-    paths (its rows take three passes of shared memory) and one with
-    groups scored -inf: within rtol 1e-10 of the plain version, -inf
-    where it is -inf."""
+    paths (16 words of the pre-pass, 8 warps per tile of groups) and one
+    with groups scored -inf: within rtol 1e-10 of the plain version, -inf
+    where it is -inf; two grids a call (pre-pass, scores)."""
     from rpvg_tpu_torch.ops import group_scores_cuda
     from rpvg_tpu_torch.testing import enumeration_cluster_set
 
@@ -455,7 +461,7 @@ def test_group_scores_kernel_matches_plain(cuda, k):
     launches, n = group_scores_cuda.LAUNCHES, group_scores_cuda.CLUSTERS
     kernel = group_scores_cuda.group_scores(packed)
     torch.cuda.synchronize()
-    assert group_scores_cuda.LAUNCHES == launches + 1
+    assert group_scores_cuda.LAUNCHES == launches + 2
     assert group_scores_cuda.CLUSTERS == n + len(clusters)
     plain = group_scores_cuda.group_scores_ragged_plain(packed)
     kernel, plain = kernel.cpu().numpy(), plain.cpu().numpy()
@@ -465,8 +471,9 @@ def test_group_scores_kernel_matches_plain(cuda, k):
 
 
 def test_group_scores_kernel_unstaged_rows_and_large_group_size(cuda):
-    """A row of 7,000 paths does not fit the block's shared memory (read
-    from global memory); group size 9 reads its indices from the table."""
+    """A cluster of 7,000 paths (7,001 bit words for its 32 rows, read
+    through L1) beside small ones at k = 1; group size 9 reads its
+    prefix from the table."""
     from rpvg_tpu_torch.ops import group_scores_cuda
     from rpvg_tpu_torch.testing import enumeration_cluster_set
 
@@ -475,14 +482,51 @@ def test_group_scores_kernel_unstaged_rows_and_large_group_size(cuda):
     small = enumeration_cluster_set(3, seed=67, group_size=1, max_paths=8, max_rows=20)
     for k, inputs in ((1, [wide] + [c[:3] for c in small]), (9, [c[:3] for c in small])):
         packed = group_scores_cuda.make_clusters(inputs, k, cuda)
-        plan = group_scores_cuda.plan_launches(packed.host["n_cols"])
-        if k == 1:
-            assert [lc.staged for lc in plan] == [True, False]
         kernel = group_scores_cuda.group_scores(packed).cpu().numpy()
         plain = group_scores_cuda.group_scores_ragged_plain(packed).cpu().numpy()
         finite = np.isfinite(plain)
         assert np.array_equal(np.isneginf(kernel), np.isneginf(plain))
         np.testing.assert_allclose(kernel[finite], plain[finite], rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("k", [3, 9])
+def test_group_scores_kernel_short_prefixes_and_many_rows(cuda, k):
+    """Clusters of 2-12 paths (prefixes of 1-12 groups, several in a warp
+    of 32), one of 5,000 rows with rows of zero noise and of zero count
+    (-inf and NaN groups), and group size 9 past the register slots:
+    within rtol 1e-10 of the plain version, -inf and NaN where it has
+    them, bitwise the same on a second run; the scoring grid keeps at
+    least 2 blocks of 8 warps on an SM."""
+    from rpvg_tpu_torch.ops import group_scores_cuda
+
+    rng = np.random.default_rng(90 + k)
+    inputs = []
+    for P in ([2, 3, 5, 7, 12] if k == 3 else [2, 3, 4]):
+        R = int(rng.integers(20, 90))
+        probs = rng.random((R, P)) * (rng.random((R, P)) < 0.4)
+        inputs.append((probs, rng.uniform(1e-4, 0.05, R), rng.geometric(0.4, R).astype(float)))
+    R = 5000 if k == 3 else 300
+    probs = rng.random((R, 20 if k == 3 else 4)) * (rng.random((R, 20 if k == 3 else 4)) < 0.3)
+    noise, counts = rng.uniform(1e-4, 0.05, R), rng.geometric(0.4, R).astype(float)
+    # Row 7: zero noise, mass on path 1 alone (-inf wherever a group
+    # misses it); row X: zero noise and count, mass on path 0 alone (NaN
+    # wherever a group misses it).
+    X = 2500 % R
+    noise[[7, X]], counts[[11, X]] = 0.0, 0.0
+    probs[7], probs[7, 1], probs[X], probs[X, 0] = 0.0, 0.5, 0.0, 0.5
+    inputs.append((probs, noise, counts))
+    packed = group_scores_cuda.make_clusters(inputs, k, cuda)
+    kernel = group_scores_cuda.group_scores(packed)
+    again = group_scores_cuda.group_scores(packed)
+    torch.cuda.synchronize()
+    assert torch.equal(kernel.view(torch.int64), again.view(torch.int64))
+    kernel = kernel.cpu().numpy()
+    plain = group_scores_cuda.group_scores_ragged_plain(packed).cpu().numpy()
+    assert np.array_equal(np.isneginf(kernel), np.isneginf(plain)) and np.isneginf(plain).any()
+    assert np.array_equal(np.isnan(kernel), np.isnan(plain)) and np.isnan(plain).any()
+    finite = np.isfinite(plain)
+    np.testing.assert_allclose(kernel[finite], plain[finite], rtol=1e-10, atol=0)
+    assert group_scores_cuda.blocks_per_sm(k) >= 2
 
 
 def _k_slot_clusters(k):

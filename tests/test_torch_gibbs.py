@@ -366,7 +366,9 @@ def test_launch_plans_cover_every_job_once():
     """Every job in one launch; staged on the fewest CTAs of a cluster
     (up to 8) whose row slices' CDFs and P fit shared memory, else
     unstaged on one; its team covers one CTA's rows, columns and half its
-    trials (or is the largest)."""
+    trials (or is the largest).  The pair sampler's launches hold every
+    cluster: a one-path one in the small launch, a 100-path one in the
+    large, a 200-path one unstaged."""
     rows = np.array([1, 3, 40, 300, 2000, 5, 200, 12000])
     cols = np.array([1, 9, 61, 12, 30, 300, 100, 12])
     trials = np.array([1, 40, 4000, 900, 2000, 5, 200, 100])
@@ -384,9 +386,10 @@ def test_launch_plans_cover_every_job_once():
     assert {route[i] for i in (0, 1, 2, 3, 5)} == {(1, True)}
     team = {int(t): lc.threads for lc in plan for t in lc.tasks}
     assert team[2] == 512 and team[0] == 32 and team[3] == 512
-    pplan = posterior_gibbs_cuda.plan_launches([1, 100, 200], [10, 12, 14])
-    assert sorted(np.concatenate([lc.tasks for lc in pplan]).tolist()) == [0, 1, 2]
-    assert {int(t) for lc in pplan if not lc.staged for t in lc.tasks} == {2}
+    pplan, _, _ = posterior_gibbs_cuda.plan_launches([1, 100, 200], [10, 12, 14])
+    assert [lc.tasks.tolist() for lc in pplan] == [[0], [1], [2]]
+    assert [(lc.staged, lc.smem_bytes) for lc in pplan] == [
+        (True, 16), (True, int(posterior_gibbs_cuda.table_bytes(100))), (False, 0)]
 
 
 def test_profile_tool_probes_each_barrier_of_an_iteration():

@@ -124,7 +124,8 @@ def test_log_permutations_rows_is_num_permutations(k):
 
 def test_ragged_clusters_and_tables():
     """Tables are shared per P; offsets address every cluster's rows and
-    scores; the plain route fills every score once."""
+    scores; the plain route fills every score once; the kernel's blocks
+    cover every group once, a cluster of 7,000 paths too."""
     clusters = enumeration_cluster_set(6, seed=140, group_size=3, max_rows=30)
     clusters.append(clusters[3])
     packed = group_scores_cuda.make_clusters([c[:3] for c in clusters], 3, CPU)
@@ -138,9 +139,10 @@ def test_ragged_clusters_and_tables():
         scores[host["out_offsets"][3] : host["out_offsets"][4]],
         scores[host["out_offsets"][6] : host["out_offsets"][7]],
     )
-    plan = group_scores_cuda.plan_launches(list(P) + [7000])
-    assert [lc.staged for lc in plan] == [True, False]
-    assert list(plan[1].tasks) == [len(P)]
+    groups = list(host["n_groups"]) + [7000]
+    cluster, first, split = group_scores_cuda.plan_blocks(list(host["n_rows"]) + [3], groups)
+    assert sorted(set(cluster.tolist())) == list(range(len(P) + 1))
+    assert sum(min(256 // split[c], groups[c] - f) for c, f in zip(cluster, first)) == sum(groups)
 
 
 # ---------------------------------------------- the k-slot sampler

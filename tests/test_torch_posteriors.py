@@ -1,5 +1,7 @@
 """The port's diploid pair scoring and posteriors against the JAX
-package's, on the same numpy inputs made from a seed."""
+package's, on the same numpy inputs made from a seed; the pair Gibbs
+sampler's CDFs, draws and block plan (``csrc/gibbs_posterior.cu``) in
+plain PyTorch."""
 
 import numpy as np
 import pytest
@@ -8,6 +10,7 @@ import torch
 from rpvg_tpu.infer import posteriors as ref_post
 from rpvg_tpu.infer.matrices import calc_path_log_frequencies
 from rpvg_tpu_torch.infer import posteriors
+from rpvg_tpu_torch.ops import posterior_gibbs_cuda
 
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -118,3 +121,96 @@ def test_scored_clusters_counted_by_device():
     posteriors.diploid_posteriors_batched(clusters, 1e-3, CPU)
     assert posteriors.SCORED_CLUSTERS["cpu"] == before["cpu"] + 2
     assert posteriors.SCORED_CLUSTERS["cuda"] == before["cuda"]
+
+
+# ------------------------------------------- the pair sampler's draws
+
+
+def _cdf_rows(kind, P, n, rng):
+    """(n, P) CDF rows as the kernel builds them from pair scores of one
+    kind: random, uniform (no finite maximum), tied, with zero-mass
+    columns, or one dominant column."""
+    scores = rng.normal(0.0, 3.0, (n, P))
+    if kind == "uniform":
+        scores[:] = -np.inf
+    elif kind == "ties":
+        scores = np.round(scores)
+    elif kind == "zero_mass":
+        scores[rng.random((n, P)) < 0.6] = -np.inf
+        scores[np.arange(n), rng.integers(0, P, n)] = 0.0
+    elif kind == "peaked":
+        scores[np.arange(n), rng.integers(0, P, n)] = 80.0
+    s = torch.from_numpy(scores)
+    m = s.max(dim=1).values
+    finite = torch.isfinite(m)
+    terms = torch.where(finite[:, None], torch.exp(s - m[:, None]), 1.0)
+    return posterior_gibbs_cuda.warp_scan_cdfs(terms)
+
+
+@pytest.mark.parametrize("P", [1, 2, 31, 33, 120, 200])
+@pytest.mark.parametrize("kind", ["random", "uniform", "ties", "zero_mass", "peaked"])
+def test_kernel_draws_are_lower_bounds(kind, P):
+    """The kernel's draw (a branch-free halving search) gives
+    torch.searchsorted's lower bound, clamped to P - 1, on seeded CDFs as
+    the kernel builds them; uniforms on the CDF's own entries and past
+    the last entry too."""
+    rng = np.random.default_rng(P + 7 * len(kind))
+    cdf = _cdf_rows(kind, P, 64, rng)
+    assert (cdf[:, 1:] >= cdf[:, :-1]).all()
+    edges = [np.full(64, j / P) for j in range(P)][:8] + [np.full(64, 1 - 2.0**-53)]
+    for u in [rng.random(64) for _ in range(16)] + edges + [cdf[:, 0].numpy(), cdf[:, -1].numpy()]:
+        u = torch.from_numpy(np.clip(u, 2.0**-53, 1 - 2.0**-53))
+        got = posterior_gibbs_cuda.halving_search(cdf, u)
+        expected = torch.searchsorted(cdf, u[:, None]).squeeze(1).clamp(max=P - 1)
+        assert torch.equal(got, expected)
+
+
+def test_warp_scan_cdfs_match_running_sums():
+    """The kernel's warp-scan CDFs are nondecreasing, end at 1 and lie
+    within 1e-14 of the sequential running sums; P = 1 is [1]."""
+    rng = np.random.default_rng(3)
+    for P in (1, 5, 32, 33, 64, 150):
+        terms = torch.from_numpy(rng.exponential(size=(20, P)))
+        cdf = posterior_gibbs_cuda.warp_scan_cdfs(terms)
+        running = torch.cumsum(terms, dim=1) / terms.sum(dim=1, keepdim=True)
+        assert (cdf[:, 1:] >= cdf[:, :-1]).all()
+        np.testing.assert_allclose(cdf.numpy(), running.numpy(), rtol=0, atol=1e-14)
+        np.testing.assert_allclose(cdf[:, -1].numpy(), 1.0, rtol=0, atol=1e-15)
+
+
+def test_pair_sampler_blocks_hold_every_cluster_once():
+    """The pair sampler's plan: every cluster in one block of one launch;
+    a block's clusters within its shared memory (tables apart), 256 chains
+    and 256 rows; staged clusters' tables within the launch's shared
+    memory, unstaged ones apart in the scratch; small clusters share
+    blocks, a cluster past 48 KB has one of its own."""
+    rng = np.random.default_rng(4)
+    cols = np.concatenate([rng.integers(1, 40, 300), [64, 70, 120, 150, 152, 153, 200, 400]])
+    chains = 10 + np.round(0.02 * cols).astype(np.int64)
+    launches, starts, offsets = posterior_gibbs_cuda.plan_launches(cols, chains)
+    need = posterior_gibbs_cuda.table_bytes(cols)
+    seen = np.zeros(cols.size, dtype=np.int64)
+    shared = 0
+    for lc, bounds in zip(launches, starts):
+        assert lc.threads == posterior_gibbs_cuda.THREADS
+        assert lc.smem_bytes <= posterior_gibbs_cuda.SMEM_LIMIT
+        assert bounds[0] == 0 and bounds[-1] == lc.tasks.size and (np.diff(bounds) > 0).all()
+        spans = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            block = lc.tasks[lo:hi]
+            seen[block] += 1
+            if lc.staged and lc.smem_bytes > posterior_gibbs_cuda.SMALL_SMEM:
+                assert block.size == 1
+            shared += block.size > 1
+            assert chains[block].sum() <= posterior_gibbs_cuda.BLOCK_CHAINS or block.size == 1
+            assert cols[block].sum() <= posterior_gibbs_cuda.BLOCK_ROWS or block.size == 1
+            if lc.staged:
+                spans = sorted((int(offsets[c]), int(offsets[c] + need[c])) for c in block)
+                assert spans[-1][1] <= lc.smem_bytes
+                assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        if not lc.staged:
+            spans = sorted((int(offsets[c]), int(offsets[c] + need[c])) for c in lc.tasks)
+            assert spans[0][0] == 0 and all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+            assert (need[lc.tasks] > posterior_gibbs_cuda.SMEM_LIMIT).all()
+    assert (seen == 1).all()
+    assert shared > 0

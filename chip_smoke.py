@@ -110,7 +110,24 @@ Phases (each prints at least one line; any failure exits non-zero):
    with the multi-bucket kernel on each shard against its plain version;
    (e) entry.dryrun_multidevice(4, cuda, virtual=True); (f) with more
    than one CUDA device, (a) and (e) on the real devices, else a line
-   saying that only virtual shards ran.
+   saying that only virtual shards ran;
+16. the JAX package's fused native routes on phase 4's dataset, each
+   run with the counters reset just before and read just after (every
+   task of a device leg in an EM kernel, every Gibbs job in the
+   read-count kernel): (a) RPVG_TPU_FUSED_NESTED=1 at the port's
+   defaults on cuda (the escalated tail on the ragged kernel, re-timed
+   on what it was handed and held against its plain version) and cpu,
+   then the staged and fused routes in turns; (b) with
+   RPVG_TPU_ESC_MIN_AREA at the JAX package's 10^12, the tail on the
+   host; (c) the link's dispatch latency and host-to-device rate, and
+   the 16 largest slots routed (RPVG_TPU_DEVICE_SLOT_AREA) to the
+   multi-bucket kernel, re-timed on the blocks it was handed and held
+   against its plain version, with the dispatch's return time against
+   the gather's wait; (d) -n 100, its _gibbs.txt.gz within phase 9's
+   bounds of the fused cpu run; (e) RPVG_TPU_FUSED_STRAINS=1 plain (in
+   turns with the staged route) and -n 100, against the staged runs;
+   (f) RPVG_TPU_COMPOSE_OUT=0 against the composer, byte for byte.
+   Estimate files are held to the cpu or staged runs within rtol 1e-6.
 
 Phase 3 also runs the CPU tests' seven Gibbs configurations (-n 8 for
 every abundance model, --use-hap-gibbs for both haplotype models),
@@ -2356,6 +2373,357 @@ def phase_virtual_shards(torch, device, cli, compare, datasets, bench, work, thr
             "dryrun": report}
 
 
+# ------------------------------------------------ phase 16: fused routes
+
+# Every switch of the JAX package's fused routes that phase 16 sets.
+FUSED_SWITCHES = (
+    "RPVG_TPU_FUSED_NESTED", "RPVG_TPU_FUSED_STRAINS", "RPVG_TPU_EM_BOUND",
+    "RPVG_TPU_ESC_MIN_AREA", "RPVG_TPU_DEVICE_SLOT_AREA", "RPVG_TPU_COMPOSE_OUT",
+)
+
+
+def with_switches(switches, fn):
+    """``fn()`` with the environment variables ``switches`` set, every
+    other fused-route switch unset, and all of them restored after."""
+    saved = {name: os.environ.pop(name, None) for name in FUSED_SWITCHES}
+    os.environ.update(switches)
+    try:
+        return fn()
+    finally:
+        for name in FUSED_SWITCHES:
+            os.environ.pop(name, None)
+            if saved[name] is not None:
+                os.environ[name] = saved[name]
+
+
+def fused_run(torch, device, cli, check_estimate_file, label, paths, prefix, threads, model,
+              info, switches, backend="cuda", extra=()):
+    """One CLI run on a fused route (``switches``) at full width, with the
+    counters reset just before and read just after: every task of the
+    device legs in an EM kernel, every Gibbs job in the read-count
+    kernel, no phase B on the card (the C++ call scores the pairs).
+    Returns (stats, counters, wall) after printing a line."""
+    if backend == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_counters()
+    t0 = time.perf_counter()
+    rc, stats = with_switches(switches, lambda: cli.run_cli(
+        cli_argv(paths, prefix, backend, threads, model, info) + list(extra)))
+    wall = time.perf_counter() - t0
+    counts = read_counters()
+    if rc != 0:
+        raise RuntimeError(f"phase 16 {label} exited {rc}")
+    if stats.get("route") != "fused native":
+        raise AssertionError(f"phase 16 {label}: the fused route did not run")
+    rows = [check_estimate_file(prefix + s) for s in output_suffixes(model)]
+    if backend == "cuda" and not (
+        counts["ragged_tasks"] + counts["fused_tasks"] == stats["device_em_tasks"]
+        and counts["gibbs_jobs"] == stats["gibbs_jobs"]
+        and (counts["gibbs_launches"] >= 1) == (stats["gibbs_jobs"] > 0)
+        and counts["scored_cuda"] == 0 and counts["scored_cpu"] == 0
+    ):
+        raise AssertionError(f"phase 16 {label}: device work not all through the kernels: "
+                             f"{counts}, stats {stats}")
+    legs = {key: stats[key] for key in (
+        "em_bound", "device_em_tasks", "escalated_tasks", "escalated_area",
+        "escalated_on_device", "deferred_tasks", "routed_slots", "routed_tasks",
+        "routed_area", "dispatch_seconds", "gather_wait_seconds")
+        if key in stats}
+    phases = ", ".join(f"{k} {v:.3f}s" for k, v in stats["phase_seconds"].items())
+    peak = (f"; max_memory_allocated {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB"
+            if backend == "cuda" else "")
+    log(
+        f"phase 16 {label}: {model}{' -f' if info else ''}{' ' + ' '.join(extra) if extra else ''} "
+        f"{' '.join(f'{k}={v}' for k, v in switches.items())} --backend {backend}: {PAIRS} pairs "
+        f"in {wall:.2f}s wall = {PAIRS / wall:.1f} read pairs/s; fragment pass "
+        f"{stats['fragment_pass_seconds']:.2f}s, matrices {stats['matrix_seconds']:.2f}s, phases "
+        f"{phases}, outputs {stats['output_seconds']:.2f}s; {stats['em_tasks']} EM tasks, legs "
+        f"{json.dumps(legs)}; kernels: ragged {counts['ragged_launches']} launch(es) / "
+        f"{counts['ragged_tasks']} tasks, multi-bucket {counts['fused_launches']} / "
+        f"{counts['fused_tasks']}, read-count {counts['gibbs_launches']} / "
+        f"{counts['gibbs_jobs']} jobs; output rows {' + '.join(map(str, rows))}, all finite{peak}"
+    )
+    return stats, counts, wall
+
+
+def hold_outputs(label, compare, prefix, ref_prefix, model, byte_identical=False):
+    """The estimate files of ``prefix`` against ``ref_prefix``: identical
+    rows within rtol 1e-6 / atol 1e-6, or byte for byte."""
+    suffixes = output_suffixes(model)
+    if byte_identical:
+        ours, ref = read_outputs(prefix, suffixes), read_outputs(ref_prefix, suffixes)
+        differ = [suffix for suffix in suffixes if ours[suffix] != ref[suffix]]
+        if differ:
+            raise AssertionError(f"phase 16 {label}: {differ} not byte-identical")
+        log(f"phase 16 {label}: against {os.path.basename(ref_prefix)}: "
+            f"{', '.join(suffixes)} byte-identical")
+        return
+    reports = []
+    for suffix in suffixes:
+        rep = compare.compare_estimate_files(prefix + suffix, ref_prefix + suffix, RTOL, ATOL_OUT)
+        reports.append(f"{suffix} {rep['rows']} rows, max rel {rep['max_rel_diff']:.3e}, "
+                       f"byte-identical {rep['byte_identical']}")
+    log(f"phase 16 {label}: against {os.path.basename(ref_prefix)}: " + "; ".join(reports))
+
+
+def hold_gibbs(label, compare, prefix, ref_prefix):
+    rep = compare.compare_gibbs_files(prefix + "_gibbs.txt.gz", ref_prefix + "_gibbs.txt.gz",
+                                      N_SE, same_rows=True)
+    log(f"phase 16 {label}: _gibbs.txt.gz against {os.path.basename(ref_prefix)}: "
+        f"{rep['rows']} rows, {rep['outside']} outside {N_SE:.0f} se (allowed "
+        f"{gibbs_rows_allowed(rep['rows'])}), worst {rep['max_se']:.2f} se")
+    if rep["outside"] > gibbs_rows_allowed(rep["rows"]):
+        raise AssertionError(f"phase 16 {label}: Gibbs sample means differ")
+
+
+def routes_in_turns(torch, device, cli, check_estimate_file, label, bench, prefix, threads,
+                    model, info, switches):
+    """The staged and the fused route on cuda in turns (staged, fused,
+    fused, staged), walls on the CLI's clock: the wall, the inference
+    phases and the outputs of each run, printed and returned."""
+    walls = {"staged": [], "fused": []}
+    for k, route in enumerate(("staged", "fused", "fused", "staged")):
+        reset_counters()
+        tag = f"turn_{model}_{k}"
+        rc, stats = with_switches(switches if route == "fused" else {}, lambda: cli.run_cli(
+            cli_argv(bench, prefix(tag), "cuda", threads, model, info)))
+        if rc != 0 or (stats.get("route") == "fused native") != (route == "fused"):
+            raise RuntimeError(f"phase 16 {label}: {route} turn {k} failed")
+        for suffix in output_suffixes(model):
+            check_estimate_file(prefix(tag) + suffix)
+        walls[route].append((stats["wall_seconds"], sum(stats["phase_seconds"].values()),
+                             stats["output_seconds"]))
+    log(f"phase 16 {label}: {model} staged / fused in turns (staged, fused, fused, staged), "
+        f"seconds on the CLI's clock as (wall, inference phases, outputs): staged "
+        + ", ".join(f"({w:.2f}, {p:.3f}, {o:.3f})" for w, p, o in walls["staged"]) + "; fused "
+        + ", ".join(f"({w:.2f}, {p:.3f}, {o:.3f})" for w, p, o in walls["fused"]))
+    return {f"{route}_{key}": [run[i] for run in walls[route]]
+            for route in walls for i, key in enumerate(("wall_s", "phases_s", "outputs_s"))}
+
+
+def link_numbers(torch, device):
+    """(dispatch seconds, host-to-device bytes per second) on the host
+    clock: a tiny launch and a synchronize, the mean of 3 after a warm
+    call; one 4 MB copy from page-locked memory and a synchronize, after
+    a warm copy."""
+    x = torch.zeros(1, device=device)
+
+    def tiny():
+        x.add_(1)
+        torch.cuda.synchronize()
+
+    tiny()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        tiny()
+    dispatch_s = (time.perf_counter() - t0) / 3
+    host = torch.empty(4 << 20, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(host.shape, dtype=host.dtype, device=device)
+    dst.copy_(host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dst.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    return dispatch_s, host.numel() / (time.perf_counter() - t0)
+
+
+def captured_blocks_check(torch, captured, label):
+    """The multi-bucket kernel on the blocks a run handed it (each call of
+    em_fused_cuda.em_fixed_point_padded, captured by the script), re-timed
+    with CUDA events and held against its plain version on the same
+    blocks (every fraction within rtol RTOL / atol ATOL_EM)."""
+    import numpy as np
+
+    from rpvg_tpu_torch.ops import em_fused_cuda
+
+    kernel = em_fused_cuda.em_fixed_point_padded
+    plain = em_fused_cuda.em_fixed_point_padded_plain
+
+    def run(solve):
+        return [solve(blocks, its, tol) for blocks, its, tol in captured]
+
+    def flat(outs, part):
+        return torch.cat([t.reshape(-1) for out in outs for t in out[part]]).cpu().numpy()
+
+    k_outs = run(kernel)
+    kernel_ms = cuda_ms(lambda: run(kernel), reps=5)
+    p_outs, plain_ms = timed_once(lambda: run(plain))
+    k, p = flat(k_outs, 0), flat(p_outs, 0)
+    diff = np.abs(k - p)
+    n_bad = int((diff > ATOL_EM + RTOL * np.abs(p)).sum())
+    iters = flat(k_outs, 1)
+    off_by = int((iters != flat(p_outs, 1)).sum())
+    blocks = [block for group, _, _ in captured for block in group]
+    extents = em_fused_cuda.cluster_extents(blocks)
+    in_elems = sum(p.numel() + c.numel() + m.numel() for p, c, m in blocks)
+    out_elems = sum(m.numel() for _, _, m in blocks) + iters.size
+    # Descriptors (5 int64 per block) and cluster offsets (blocks + 1).
+    meta = sum(6 * len(group) + 1 for group, _, _ in captured)
+    bound_ms, bound_by = em_bound(
+        8 * (in_elems + meta), 8 * out_elems, iters, extents[:, 0], extents[:, 1]
+    )
+    log(f"phase 16 {label}: the multi-bucket kernel on the run's {len(captured)} launch "
+        f"group(s) ({iters.size} clusters, {len(blocks)} blocks, padded shapes "
+        f"{sorted({tuple(b[0].shape[1:]) for b in blocks})}) re-timed: {kernel_ms:.3f} ms "
+        f"(CUDA events), plain {plain_ms:.1f} ms (one run), bound {bound_ms:.4f} ms "
+        f"({bound_by}); vs plain max abs {float(diff.max()):.3e}, {n_bad} out of tolerance "
+        f"(rtol {RTOL}, atol {ATOL_EM}), {off_by} clusters with another iteration count")
+    if n_bad:
+        raise AssertionError(f"phase 16 {label}: multi-bucket kernel disagrees with plain")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": float(diff.max()), "clusters": int(iters.size)}
+
+
+def phase_fused_routes(torch, device, cli, compare, check_estimate_file, bench, work, threads,
+                       staged):
+    """Phase 16: the JAX package's fused native routes on phase 4's
+    dataset with --backend cuda (``staged``: phase 6's and 9's prefixes
+    of the staged runs it is held against): (a) RPVG_TPU_FUSED_NESTED=1
+    at the port's defaults (the escalated tail on the ragged kernel,
+    re-timed on what it was handed), cuda and cpu, and the staged and
+    fused routes on cuda in turns; (b) the tail on the host
+    (RPVG_TPU_ESC_MIN_AREA at the JAX package's 10^12); (c) the link's
+    numbers and a run with RPVG_TPU_DEVICE_SLOT_AREA at the 16th largest
+    slot's area, the multi-bucket kernel re-timed on its blocks; (d) -n
+    100 on the fused route, cuda against cpu; (e)
+    RPVG_TPU_FUSED_STRAINS=1 plain (in turns with the staged route) and
+    with -n 100 against the staged runs; (f) RPVG_TPU_COMPOSE_OUT=0
+    against the composer, byte for byte, on (a) and on the staged
+    transcripts and strains runs."""
+    from rpvg_tpu_torch import native
+    from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
+
+    model = "haplotype-transcripts"
+    prefix = lambda tag: os.path.join(work, f"fused_{tag}")  # noqa: E731
+    run = lambda label, tag, switches, **kw: fused_run(  # noqa: E731
+        torch, device, cli, check_estimate_file, label, bench, prefix(tag), threads,
+        kw.pop("model", model), kw.pop("info", True), switches, **kw)
+    nested = {"RPVG_TPU_FUSED_NESTED": "1"}
+    out = {}
+
+    # (a) the port's defaults: the escalated tail on the ragged kernel,
+    # its tasks captured; the slot areas captured for (c).
+    areas = []
+    infer = native.nested_diploid_infer
+    captured = []
+    launch = em_cuda.em_fixed_point
+
+    def capture_areas(dense_clusters, *args, **kwargs):
+        areas.extend(p.shape[0] * p.shape[1] for p, _, _ in dense_clusters)
+        return infer(dense_clusters, *args, **kwargs)
+
+    def capture(tasks, max_em_its, max_rel_em_conv):
+        captured.append((tasks, max_em_its, max_rel_em_conv))
+        return launch(tasks, max_em_its, max_rel_em_conv)
+
+    native.nested_diploid_infer, em_cuda.em_fixed_point = capture_areas, capture
+    try:
+        stats_a, counts_a, _ = run("(a)", "a", nested)
+    finally:
+        native.nested_diploid_infer, em_cuda.em_fixed_point = infer, launch
+    if not (counts_a["ragged_launches"] >= 1
+            and counts_a["ragged_tasks"] == stats_a["escalated_on_device"] > 0):
+        raise AssertionError(f"phase 16 (a): the escalated tail did not run on the ragged "
+                             f"kernel: {counts_a}")
+    run("(a)", "a_cpu", nested, backend="cpu")
+    hold_outputs("(a) cuda vs cpu", compare, prefix("a"), prefix("a_cpu"), model)
+    hold_outputs("(a) fused vs staged", compare, prefix("a"), os.path.join(work, "bench"), model)
+    tail = phase_main_path_em(torch, device, captured, phase="16 (a)",
+                              run="the escalated tail")
+    out["a"] = {"native_s": stats_a["phase_seconds"]["native"],
+                "device_s": stats_a["phase_seconds"]["device"],
+                "launches": counts_a["ragged_launches"], "tasks": counts_a["ragged_tasks"],
+                "area": stats_a["escalated_area"], **tail,
+                **routes_in_turns(torch, device, cli, check_estimate_file, "(a)", bench, prefix,
+                                  threads, model, True, nested)}
+
+    # (b) the JAX package's default: the tail rebatched on the host.
+    stats_b, counts_b, _ = run("(b)", "b", {**nested, "RPVG_TPU_ESC_MIN_AREA": str(10**12)})
+    if counts_b["ragged_launches"] or stats_b["escalated_on_device"]:
+        raise AssertionError(f"phase 16 (b): the tail went to the card: {counts_b}")
+    hold_outputs("(b) host tail, cuda vs cpu", compare, prefix("b"), prefix("a_cpu"), model)
+    out["b"] = {"native_s": stats_b["phase_seconds"]["native"],
+                "device_s": stats_b["phase_seconds"]["device"],
+                "escalated_tasks": stats_b["escalated_tasks"]}
+    log(f"phase 16 (b): the escalated tail ({stats_a['escalated_tasks']} tasks, "
+        f"{stats_a['escalated_area']} elements): device leg on the ragged kernel "
+        f"{out['a']['device_s']:.3f} s in (a) against the host rebatch's "
+        f"{out['b']['device_s']:.3f} s here (phase clock)")
+
+    # (c) the link, and the 16 largest slots on the multi-bucket kernel.
+    dispatch_s, h2d_bps = link_numbers(torch, device)
+    order = sorted(areas, reverse=True)
+    cutoff = order[min(15, len(order) - 1)]
+    log(f"phase 16 (c): link on {torch.cuda.get_device_name(0)}: dispatch "
+        f"{dispatch_s * 1e6:.1f} us (a tiny launch + synchronize, host clock, mean of 3 after "
+        f"a warm call), host-to-device {h2d_bps / 1e9:.3f} GB/s (one 4 MB copy from "
+        f"page-locked memory + synchronize, after a warm copy); largest slot areas "
+        f"{order[:16]} of {len(areas)} slots")
+    blocks_in = []
+    padded = em_fused_cuda.em_fixed_point_padded
+
+    def capture_blocks(blocks, max_em_its, max_rel_em_conv, extents=None):
+        blocks_in.append((blocks, max_em_its, max_rel_em_conv))
+        return padded(blocks, max_em_its, max_rel_em_conv, extents)
+
+    em_fused_cuda.em_fixed_point_padded = capture_blocks
+    try:
+        stats_c, counts_c, _ = run("(c)", "c",
+                                   {**nested, "RPVG_TPU_DEVICE_SLOT_AREA": str(cutoff)})
+    finally:
+        em_fused_cuda.em_fixed_point_padded = padded
+    if not (counts_c["fused_launches"] >= 1 and stats_c["routed_slots"] >= 1):
+        raise AssertionError(f"phase 16 (c): no slot routed to the card: {counts_c}")
+    hold_outputs("(c) cuda vs (a) cpu", compare, prefix("c"), prefix("a_cpu"), model)
+    slots = captured_blocks_check(torch, blocks_in, "(c)")
+    out["c"] = {"dispatch_us": dispatch_s * 1e6, "h2d_gbps": h2d_bps / 1e9, "cutoff": cutoff,
+                "routed_slots": stats_c["routed_slots"], "routed_tasks": stats_c["routed_tasks"],
+                "launches": counts_c["fused_launches"], "tasks": counts_c["fused_tasks"],
+                "dispatch_s": stats_c["dispatch_seconds"],
+                "gather_wait_s": stats_c["gather_wait_seconds"], **slots}
+
+    # (d) -n 100 on the fused route, cuda against cpu (the samples are
+    # allocated over the subsets on the host from the C++ call's subset
+    # probabilities, so both devices sample the same rows).
+    stats_d, counts_d, wall_d = run("(d)", "d", nested, extra=("-n", "100"))
+    run("(d)", "d_cpu", nested, backend="cpu", extra=("-n", "100"))
+    hold_outputs("(d) -n 100 cuda vs phase 9's staged cpu", compare, prefix("d"),
+                 os.path.join(work, "gibbs_main_cpu"), model)
+    hold_gibbs("(d) -n 100 cuda vs cpu", compare, prefix("d"), prefix("d_cpu"))
+    out["d"] = {"launches": counts_d["gibbs_launches"], "jobs": counts_d["gibbs_jobs"],
+                "wall_s": wall_d, "D2_s": stats_d["phase_seconds"]["D2"]}
+
+    # (e) the fused strains route, plain and -n 100, against the staged.
+    strains = {"RPVG_TPU_FUSED_STRAINS": "1"}
+    stats_e, _, _ = run("(e)", "e", strains, model="strains", info=False)
+    hold_outputs("(e) fused vs staged", compare, prefix("e"), staged["strains"], "strains")
+    turns = routes_in_turns(torch, device, cli, check_estimate_file, "(e)", bench, prefix,
+                            threads, "strains", False, strains)
+    stats_en, counts_en, _ = run("(e)", "e_n", strains, model="strains", info=False,
+                                 extra=("-n", "100"))
+    run("(e)", "e_n_cpu", strains, model="strains", info=False, backend="cpu",
+        extra=("-n", "100"))
+    hold_outputs("(e) -n 100 fused vs staged", compare, prefix("e_n"), staged["strains_n"],
+                 "strains")
+    hold_gibbs("(e) -n 100 fused, cuda vs cpu", compare, prefix("e_n"), prefix("e_n_cpu"))
+    out["e"] = {"native_s": stats_e["phase_seconds"]["native"], **turns,
+                "launches": counts_en["gibbs_launches"], "jobs": counts_en["gibbs_jobs"]}
+
+    # (f) the composer off against on, byte for byte.
+    run("(f)", "f", {**nested, "RPVG_TPU_COMPOSE_OUT": "0"})
+    hold_outputs("(f) object writers vs composer", compare, prefix("f"), prefix("a"), model,
+                 byte_identical=True)
+    for tag, ref in (("transcripts", staged["transcripts"]), ("strains", staged["strains"])):
+        reset_counters()
+        rc, _ = with_switches({"RPVG_TPU_COMPOSE_OUT": "0"}, lambda: cli.run_cli(
+            cli_argv(bench, prefix(f"f_{tag}"), "cuda", threads, tag, tag == "transcripts")))
+        if rc != 0:
+            raise RuntimeError(f"phase 16 (f) {tag} exited {rc}")
+        hold_outputs(f"(f) staged {tag}, object writers vs composer", compare,
+                     prefix(f"f_{tag}"), ref, tag, byte_identical=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2568,6 +2936,14 @@ def main() -> int:
         virtual = phase_virtual_shards(torch, device, cli, compare, datasets, bench, work,
                                        threads, main_stats, main_counts)
 
+        # Phase 16: the JAX package's fused native routes and their legs.
+        fused_routes = phase_fused_routes(
+            torch, device, cli, compare, check_estimate_file, bench, work, threads,
+            {"transcripts": os.path.join(work, "bench_transcripts"),
+             "strains": os.path.join(work, "bench_strains"),
+             "strains_n": os.path.join(work, "gibbs_strains")},
+        )
+
     # Phases 7 and 8: the two Gibbs samplers; 11 and 12: the ploidy-k kernels.
     gibbs = phase_gibbs_kernel(torch, device, gibbs_captured)
     posterior = phase_posterior_kernel(torch, device, posterior_captured)
@@ -2583,7 +2959,8 @@ def main() -> int:
             "source": "rpvg_tpu_torch/csrc/em_fixed_point.cu",
             "replaces": "rpvg_tpu/ops/em_pallas.py:46",
             "launches": main_path_launches,
-            "max_abs_err": max(em["max_abs_err"], main_em["max_abs_err"]),
+            "max_abs_err": max(em["max_abs_err"], main_em["max_abs_err"],
+                               fused_routes["a"]["max_abs_err"]),
             "ms": em["ms"],
             "plain_ms": em["plain_ms"],
             "bound_ms": em["bound_ms"],
@@ -2598,6 +2975,9 @@ def main() -> int:
             "virtual_shards": VIRTUAL_SHARDS,
             "virtual_shards_main_path_launches": virtual["main_counts"]["ragged_launches"],
             "virtual_shards_main_path_tasks_per_shard": virtual["main_stats"]["shard_work"]["D"],
+            **{f"fused_route_escalated_{key}": fused_routes["a"][key] for key in (
+                "launches", "tasks", "area", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "slowest_task_ms")},
         },
         {
             "name": em_cuda.KERNEL_NAME,
@@ -2624,7 +3004,7 @@ def main() -> int:
             "source": "rpvg_tpu_torch/csrc/em_fused.cu",
             "replaces": "rpvg_tpu/ops/em_pallas.py:182",
             "launches": fused_launches,
-            "max_abs_err": fused_em["max_abs_err"],
+            "max_abs_err": max(fused_em["max_abs_err"], fused_routes["c"]["max_abs_err"]),
             "ms": fused_em["ms"],
             "plain_ms": fused_em["plain_ms"],
             "bound_ms": fused_em["bound_ms"],
@@ -2635,6 +3015,10 @@ def main() -> int:
             "slowest_task_ms": fused_em["slowest_task_ms"],
             "sharded_em_step_max_abs_err": virtual["em_step_err"],
             "sharded_em_step_ms": virtual["em_step_ms"],
+            **{f"fused_route_slots_{key}": fused_routes["c"][key] for key in (
+                "routed_slots", "routed_tasks", "launches", "tasks", "clusters", "ms",
+                "plain_ms", "bound_ms", "bound_by", "max_abs_err", "dispatch_s",
+                "gather_wait_s")},
         },
         {
             "name": gibbs_cuda.KERNEL_NAME,
@@ -2660,6 +3044,10 @@ def main() -> int:
                 gibbs["main_path_slowest_job_cycles_per_iteration"],
             "iteration_minimum_us": gibbs["iteration_minimum_us"],
             "main_path_slowest_job_floor_ms": gibbs["main_path_slowest_job_floor_ms"],
+            "fused_route_launches": fused_routes["d"]["launches"],
+            "fused_route_jobs": fused_routes["d"]["jobs"],
+            "fused_strains_launches": fused_routes["e"]["launches"],
+            "fused_strains_jobs": fused_routes["e"]["jobs"],
         },
         {
             "name": posterior_gibbs_cuda.KERNEL_NAME,

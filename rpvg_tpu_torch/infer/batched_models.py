@@ -33,10 +33,21 @@ The other models run a subset of the same phases:
 Random keys replay the JAX package's per-cluster streams exactly (the
 port's threefry, :mod:`rpvg_tpu_torch.prng`): a cluster's keys are
 fold_in(seed, rank) split in a chain, and the posterior sampler takes
-the first.  The fused native routes of the JAX package (one C++ call for
-the whole nested chain, or for the strains host half and its EM) are not
-ported: on the card the staged device routes are the ones to measure
-first.
+the first.
+
+The JAX package's fused native routes run under its own switches, set
+to anything but ``0``: ``RPVG_TPU_FUSED_NESTED`` (collapsed groups at
+k = 2 without --use-hap-gibbs: one C++ call for the whole nested chain,
+:func:`_batched_haplotype_transcripts_fused`, with its device legs:
+bounded-EM escalation, slot routing, task deferral) and
+``RPVG_TPU_FUSED_STRAINS`` (one C++ call for the strains host half and
+its EM, :func:`_batched_strains_fused`); the read-count Gibbs jobs of
+both run on the device.  Unset, the port takes the staged device routes
+(the JAX package's default is the fused ones; the port's default waits
+for its benchmark).  Both fused routes and the staged ``transcripts``
+and ``strains`` routes leave columnar streams in
+``estimator._columnar_outputs`` for the native output composer
+(``pipeline.write_outputs``).
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ import math
 import os
 import sys
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +71,15 @@ from rpvg_tpu_torch.infer.matrices import (
     total_read_count,
 )
 from rpvg_tpu_torch.device import synchronize
-from rpvg_tpu_torch.infer.batching import run_batched_em_packed
+from rpvg_tpu_torch.native import native_available
+from rpvg_tpu_torch.infer.batching import (
+    dispatch_em_device,
+    em_postprocess,
+    gather_em_device,
+    run_batched_em,
+    run_batched_em_packed,
+    run_native_em,
+)
 from rpvg_tpu_torch.infer.estimators import (
     MinimumPathAbundanceEstimator,
     NestedPathAbundanceEstimator,
@@ -158,15 +177,19 @@ class _PhaseClock:
         autoshard.take_shard_work()
         self.t0 = time.perf_counter()
 
-    def lap(self, key: str, label: str) -> None:
-        synchronize(self.device)
+    def lap(self, key: str, label: str, sync: bool = True) -> None:
+        """Charge the time since the last lap to ``key`` (added to what
+        it has).  ``sync=False`` leaves the device's queued work running,
+        for a lap between a dispatch and the gather that waits for it."""
+        if sync:
+            synchronize(self.device)
         now = time.perf_counter()
-        self.seconds[key] = now - self.t0
+        self.seconds[key] = self.seconds.get(key, 0.0) + now - self.t0
         work = autoshard.take_shard_work()
         if work:
             self.shard_work[key] = work
         if self.verbose:
-            print(f"  [timing]   {key} {label}: {self.seconds[key]:.2f}s", file=sys.stderr)
+            print(f"  [timing]   {key} {label}: {now - self.t0:.2f}s", file=sys.stderr)
         self.t0 = now
 
     def report(self) -> Dict:
@@ -191,14 +214,28 @@ def batched_haplotype_transcripts(
     the clusters and seconds of the full enumeration's host engine
     (``enumeration_fallback_clusters``, ``_seconds``), the number of EM
     tasks in phase D (``em_tasks``) and of Gibbs jobs in phase D2
-    (``gibbs_jobs``)."""
+    (``gibbs_jobs``).  Under ``RPVG_TPU_FUSED_NESTED`` (at k = 2 without
+    --use-hap-gibbs, with the native library) the fused native route runs
+    instead and returns its own phases and counters
+    (:func:`_batched_haplotype_transcripts_fused`)."""
     if not (supports_batched_nested(estimator) and estimator.infer_collapsed):
         raise NotImplementedError("collapsed groups only (not --ind-hap-inference)")
+    # The staged route leaves the estimates to the object writers; the
+    # fused route stashes its set streams for the native output composer.
+    estimator._columnar_outputs = None
+    if (
+        estimator.group_size == 2
+        and not estimator.use_group_post_gibbs
+        and fused_route_asked("RPVG_TPU_FUSED_NESTED")
+        and native_available()
+    ):
+        stats = _batched_haplotype_transcripts_fused(
+            estimator, cluster_data, device, rng_seed, ranks
+        )
+        if stats is not None:
+            return stats
     clock = _PhaseClock(device)
     rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
-    # Object writers only: the native output composer reads columnar
-    # streams that only the fused native route produces.
-    estimator._columnar_outputs = None
 
     # Phase A (host): grouped probability matrices — one threaded native
     # call across every cluster (per-cluster Python fallback without the
@@ -329,6 +366,684 @@ def batched_haplotype_transcripts(
         **fallback,
         "em_tasks": len(all_tasks),
         "gibbs_jobs": gibbs_jobs,
+    }
+
+
+def fused_route_asked(variable: str) -> bool:
+    """Whether the JAX package's switch ``variable`` asks for a fused
+    native route: set to anything but ``0``.  Unset, the port keeps its
+    staged device routes on both backends (the JAX package's default is
+    the fused route; which default the port takes is decided on its
+    benchmark)."""
+    return os.environ.get(variable, "0") != "0"
+
+
+# Counters of the fused nested route's device legs (its stats keys):
+# tasks whose EM ran on the device leg (the card on cuda), tasks the
+# bounded EM escalated and their matrices' elements, those of them that
+# went to the device, tasks the area cutoff deferred, the slots routed
+# and their tasks and elements, the Gibbs jobs.  Beside them the host
+# seconds spent in the dispatch and waiting in the gather.
+_FUSED_LEG_COUNTS = (
+    "device_em_tasks", "escalated_tasks", "escalated_area", "escalated_on_device",
+    "deferred_tasks", "routed_slots", "routed_tasks", "routed_area", "gibbs_jobs",
+)
+
+
+def escalation_min_area(device: torch.device) -> int:
+    """``RPVG_TPU_ESC_MIN_AREA``: the least number of matrix elements of
+    an escalated set that re-runs on ``device``.  Unset, 0 on a CUDA
+    device, where the ragged kernel runs the escalated tail in less time
+    than the host's rebatch (``chip_smoke.py`` phase 16 times both), and
+    elsewhere the JAX package's 10^12, so that the host rebatch runs."""
+    default = 0 if device.type == "cuda" else 10**12
+    return int(os.environ.get("RPVG_TPU_ESC_MIN_AREA", default))
+
+
+def _batched_haplotype_transcripts_fused(
+    estimator, cluster_data, device: torch.device, rng_seed: int = 0, ranks=None
+) -> Optional[Dict]:
+    """The fused native route of the collapsed diploid nested model on
+    ``device`` (``_batched_haplotype_transcripts_fused`` of the JAX
+    package, ``batched_models.py:590-789``): grouped matrices, diploid
+    posteriors, subset selection, collapse and EM of every cluster in one
+    threaded C++ call (``native.nested_diploid_infer``), then per section
+    of that call (:func:`_process_nested_section`) the device EM leg, the
+    read-count Gibbs jobs (``-n``) and the posterior-weighted combine.
+    Returns None, with nothing inferred, where the library is missing.
+
+    The device legs, each under one of the JAX package's variables:
+
+    * bounded-EM escalation (the default, ``RPVG_TPU_EM_BOUND``, 1,024
+      iterations): the C++ kernel gives each subset EM a bounded budget
+      and hands back the tasks that did not converge in it.  An escalated
+      set whose matrices hold at least :func:`escalation_min_area`
+      elements re-runs on ``device`` from scratch (:func:`run_batched_em`,
+      the ragged kernel on the card); a smaller one re-runs on the host,
+      rebatched across worker threads and resumed from the bounded run's
+      exit state;
+    * slot routing (``RPVG_TPU_DEVICE_SLOT_AREA``, the clusters whose
+      dense matrix holds at least that many elements): the routed
+      clusters' task matrices come from an emit-only native pass, their
+      EM is dispatched to ``device`` without waiting
+      (:func:`dispatch_em_device`, the multi-bucket kernel on the card),
+      and the full native pass over the other clusters runs while it is
+      in flight;
+    * task deferral (``RPVG_TPU_HYBRID_EM_AREA``, on any device; the JAX
+      package reads it on a TPU alone): tasks of at least that area skip
+      the native EM and run on ``device`` (:func:`run_batched_em`).
+
+    A deferral turns the other two legs off, and slot routing the
+    escalation, as in the JAX package.  On the CPU the legs take the
+    native library as the JAX package does on its CPU
+    (``RPVG_TPU_NATIVE_EM=0``: the kernels' plain versions).  Phases:
+    ``native`` (the native passes and the dispatch), ``device`` (the
+    device legs' EM, with the wait for a dispatch), ``D2`` (with
+    -n) and ``combine``."""
+    from rpvg_tpu_torch import native
+
+    rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
+    clock = _PhaseClock(device)
+
+    meta: List[int] = []
+    dense_clusters = []
+    group_specs = []
+    group_src_counts = []
+    group_ids = []
+    for ci, (est, cluster_probs) in enumerate(cluster_data):
+        est.reset(0, 0)
+        if not cluster_probs:
+            continue
+        source_groups, source_counts = estimator.find_path_source_groups(est.paths)
+        dense_clusters.append(cluster_matrix(cluster_probs, len(est.paths)))
+        group_specs.append(_flat_group_spec(source_groups))
+        group_src_counts.append(source_counts)
+        group_ids.append(
+            np.fromiter(
+                (info.group_id for info in est.paths), np.int64, len(est.paths)
+            )
+        )
+        meta.append(ci)
+
+    # Task deferral and slot routing (explicit variables only).
+    em_area_cutoff = max(0, int(os.environ.get("RPVG_TPU_HYBRID_EM_AREA", "0")))
+    device_pos: List[int] = []
+    slot_area = int(os.environ.get("RPVG_TPU_DEVICE_SLOT_AREA", "0"))
+    if em_area_cutoff == 0 and slot_area > 0:
+        areas = np.array([p.shape[0] * p.shape[1] for p, _, _ in dense_clusters], np.int64)
+        device_pos = np.flatnonzero(areas >= slot_area).tolist()
+
+    em_bound = 0
+    if not device_pos and em_area_cutoff == 0:
+        em_bound = int(os.environ.get("RPVG_TPU_EM_BOUND", "1024"))
+
+    emit_matrices = estimator.num_gibbs_samples > 0
+    legs = dict.fromkeys(_FUSED_LEG_COUNTS, 0)
+    legs.update(dispatch_seconds=0.0, gather_wait_seconds=0.0, em_bound=em_bound)
+
+    def native_call(positions, cutoff, bound=0):
+        return native.nested_diploid_infer(
+            [dense_clusters[i] for i in positions],
+            [group_specs[i] for i in positions],
+            [group_src_counts[i] for i in positions],
+            [group_ids[i] for i in positions],
+            min_rel_likelihood=estimator.min_hap_prob,
+            min_hap_prob=estimator.min_hap_prob,
+            prob_precision=estimator.prob_precision,
+            max_em_its=estimator.max_em_its,
+            max_rel_em_conv=estimator.max_rel_em_conv,
+            em_area_cutoff=cutoff,
+            em_bound_its=bound,
+            emit_matrices=emit_matrices,
+        )
+
+    sections = []  # (section meta, streams, pending EM or None)
+    if device_pos:
+        dev_set = set(device_pos)
+        host_pos = [i for i in range(len(meta)) if i not in dev_set]
+        # Pass 1 (emit-only: cutoff 1 defers every task), then the device
+        # EM goes in flight while pass 2 runs the host share.
+        dev_streams = native_call(device_pos, 1)
+        if dev_streams is None:
+            return None
+        dev_inputs = _section_task_matrices(dev_streams, emit_matrices)
+        t0 = time.perf_counter()
+        pending = dispatch_em_device(
+            dev_inputs, range(len(dev_inputs)), estimator.max_em_its,
+            estimator.max_rel_em_conv, device,
+        )
+        legs.update(
+            dispatch_seconds=time.perf_counter() - t0, device_em_tasks=len(dev_inputs),
+            routed_slots=len(device_pos), routed_tasks=len(dev_inputs),
+            routed_area=int(sum(m.size for m, _ in dev_inputs)),
+        )
+        host_streams = native_call(host_pos, 0)
+        if host_streams is None:
+            return None
+        sections.append(([meta[i] for i in host_pos], host_streams, None))
+        sections.append(
+            ([meta[i] for i in device_pos], dev_streams,
+             (pending, dev_inputs, list(range(len(dev_inputs)))))
+        )
+    else:
+        streams = native_call(range(len(meta)), em_area_cutoff, em_bound)
+        if streams is None:
+            return None
+        sections.append((meta, streams, None))
+    clock.lap("native", "fused native pass", sync=False)
+
+    col_parts = [
+        _process_nested_section(
+            estimator, cluster_data, device, clock, legs, sec_streams, sec_meta, rank_of,
+            rng_seed, emit_matrices, sec_pending, stage_floor=em_bound,
+        )
+        for sec_meta, sec_streams, sec_pending in sections
+    ]
+    _merge_nested_columnar(estimator, col_parts)
+    return {
+        **clock.report(),
+        "route": "fused native",
+        "em_tasks": int(sum(sec_streams["n_col"].size for _, sec_streams, _ in sections)),
+        **legs,
+    }
+
+
+def _native_combine_slots(
+    cluster_data, meta, noncomb, task_bounds, col_bounds,
+    sp_arr, n_col_arr, collapsed_all, mult_all, totals, task_em_result,
+):
+    """Batch the deferred slots' posterior-weighted combine through the
+    native rpvg_nested_combine kernel.  Returns its stream tuple, or
+    None when the library is unavailable (Python fallback runs)."""
+    from rpvg_tpu_torch.native import nested_combine
+
+    sel_tasks = np.concatenate(
+        [np.arange(task_bounds[s], task_bounds[s + 1]) for s in noncomb]
+    ).astype(np.int64)
+    n_tasks_sub = np.asarray(
+        [task_bounds[s + 1] - task_bounds[s] for s in noncomb], dtype=np.int64
+    )
+    sub_ncol = n_col_arr[sel_tasks]
+    sub_col_offsets = np.zeros(sel_tasks.size + 1, dtype=np.int64)
+    np.cumsum(sub_ncol, out=sub_col_offsets[1:])
+    em_counts_stream = np.empty(int(sub_col_offsets[-1]), dtype=np.float64)
+    em_noise_arr = np.empty(sel_tasks.size, dtype=np.float64)
+    for k, t in enumerate(sel_tasks):
+        path_counts, noise_count = task_em_result(int(t))
+        em_counts_stream[sub_col_offsets[k] : sub_col_offsets[k + 1]] = path_counts
+        em_noise_arr[k] = noise_count
+    cat_cols = lambda src: (  # noqa: E731
+        np.concatenate([src[col_bounds[t] : col_bounds[t + 1]] for t in sel_tasks])
+        if sel_tasks.size else np.empty(0, dtype=src.dtype)
+    )
+    gid_arrays = [
+        np.fromiter(
+            (info.group_id for info in cluster_data[meta[s]][0].paths),
+            np.int64,
+            len(cluster_data[meta[s]][0].paths),
+        )
+        for s in noncomb
+    ]
+    return nested_combine(
+        gid_arrays,
+        totals[noncomb],
+        n_tasks_sub,
+        sp_arr[sel_tasks],
+        sub_ncol,
+        cat_cols(collapsed_all),
+        cat_cols(mult_all),
+        sub_col_offsets,
+        em_counts_stream,
+        em_noise_arr,
+    )
+
+
+def _task_matrix_bounds(streams, emit_matrices):
+    """CSR bounds into the emitted mats/cnts streams — the Python
+    mirror of the kernel's '!run_em || emit_matrices' emission rule
+    (one definition, shared by every consumer)."""
+    n_col_arr = streams["n_col"]
+    kept_arr = streams["kept"]
+    has_fracs = streams["has_fracs"].astype(bool)
+    T = n_col_arr.size
+    has_mat = np.ones(T, dtype=bool) if emit_matrices else ~has_fracs
+    mat_bounds = np.zeros(T + 1, dtype=np.int64)
+    np.cumsum(np.where(has_mat, kept_arr * (n_col_arr + 1), 0), out=mat_bounds[1:])
+    cnt_bounds = np.zeros(T + 1, dtype=np.int64)
+    np.cumsum(np.where(has_mat, kept_arr, 0), out=cnt_bounds[1:])
+    return mat_bounds, cnt_bounds
+
+
+def _section_task_matrices(streams, emit_matrices, task_ids=None):
+    """Per-task (matrix, counts) views over a section's emitted
+    streams.  `task_ids` selects a subset (default: every task that has
+    an emitted matrix — all of them for emit-only sections)."""
+    mat_bounds, cnt_bounds = _task_matrix_bounds(streams, emit_matrices)
+    kept_arr = streams["kept"]
+    n_col_arr = streams["n_col"]
+    mats_all = streams["mats"]
+    cnts_all = streams["cnts"]
+    if task_ids is None:
+        task_ids = range(n_col_arr.size)
+    return [
+        (
+            mats_all[mat_bounds[t] : mat_bounds[t + 1]].reshape(
+                int(kept_arr[t]), int(n_col_arr[t]) + 1
+            ),
+            cnts_all[cnt_bounds[t] : cnt_bounds[t + 1]],
+        )
+        for t in task_ids
+    ]
+
+
+def _process_nested_section(
+    estimator, cluster_data, device, clock, legs, streams, meta, rank_of, rng_seed,
+    emit_matrices, pre_dispatched, stage_floor=0,
+):
+    """Decode one native-call section of the fused nested route on
+    ``device`` (``_process_nested_section`` of the JAX package,
+    ``batched_models.py:880-1236``): the device EM of its deferred tasks
+    (a pre-dispatched section's results are gathered here), the
+    read-count Gibbs jobs and the per-cluster posterior-weighted combine,
+    lapped on ``clock`` as ``device``, ``D2`` and ``combine``; the legs'
+    counters add up in ``legs``.  Returns the section's columnar-output
+    arrays for :func:`_merge_nested_columnar`."""
+    from rpvg_tpu_torch.infer.estimates import GroupSetViews
+
+    totals = streams["totals"]
+    n_tasks = streams["n_tasks"]
+    sp_arr = streams["subset_prob"]
+    n_col_arr = streams["n_col"]
+    kept_arr = streams["kept"]
+    has_fracs = streams["has_fracs"].astype(bool)
+    collapsed_all = streams["collapsed"]
+    mult_all = streams["mult"]
+    fracs_all = streams["fracs"]
+    mats_all = streams["mats"]
+    cnts_all = streams["cnts"]
+
+    T = sp_arr.size
+    task_bounds = np.zeros(len(meta) + 1, dtype=np.int64)
+    np.cumsum(n_tasks, out=task_bounds[1:])
+    col_bounds = np.zeros(T + 1, dtype=np.int64)
+    np.cumsum(n_col_arr, out=col_bounds[1:])
+    fr_bounds = np.zeros(T + 1, dtype=np.int64)
+    np.cumsum(np.where(has_fracs, n_col_arr + 1, 0), out=fr_bounds[1:])
+    mat_bounds, cnt_bounds = _task_matrix_bounds(streams, emit_matrices)
+
+    def task_matrix(t):
+        return (
+            mats_all[mat_bounds[t] : mat_bounds[t + 1]].reshape(
+                int(kept_arr[t]), int(n_col_arr[t]) + 1
+            ),
+            cnts_all[cnt_bounds[t] : cnt_bounds[t + 1]],
+        )
+
+    # Device EM for the deferred tasks.  Pre-dispatched sections (slot
+    # routing) gather their in-flight results here; escalation and task deferral run now.
+    if pre_dispatched is not None:
+        pending, dev_inputs, task_ids = pre_dispatched
+        device_results = [None] * len(dev_inputs)
+        t0 = time.perf_counter()
+        gather_em_device(pending, dev_inputs, device_results)
+        legs["gather_wait_seconds"] += time.perf_counter() - t0
+        device_of = dict(zip(task_ids, device_results))
+    else:
+        device_tasks = np.flatnonzero(~has_fracs)
+        if device_tasks.size:
+            task_inputs = [task_matrix(t) for t in device_tasks]
+            # Escalated sets below RPVG_TPU_ESC_MIN_AREA run on the host,
+            # rebatched across worker threads; larger ones on the device.
+            esc_min_area = escalation_min_area(device)
+            total_area = sum(m.size for m, _ in task_inputs)
+            if stage_floor > 0:
+                legs["escalated_tasks"] += len(task_inputs)
+                legs["escalated_area"] += int(total_area)
+            else:
+                legs["deferred_tasks"] += len(task_inputs)
+            if stage_floor > 0 and total_area < esc_min_area:
+                # Resume from the bounded run's exit state (emitted by
+                # the kernel): bitwise-identical to an uninterrupted
+                # run, without re-paying the stage_floor iterations.
+                resume = None
+                remaining_its = estimator.max_em_its
+                esc_conv = streams.get("esc_conv")
+                if esc_conv is not None and esc_conv.size == device_tasks.size:
+                    widths = n_col_arr[device_tasks] + 1
+                    esc_fracs = streams["esc_fracs"]
+                    if esc_fracs.size == int(widths.sum()):
+                        resume = (esc_fracs, esc_conv)
+                        remaining_its = max(1, estimator.max_em_its - stage_floor)
+                # Without Gibbs the kernel emits mats/cnts for exactly the
+                # escalated tasks in order: hand the streams through.
+                concat = (mats_all, cnts_all) if not emit_matrices else None
+                device_results = run_native_em(
+                    task_inputs, remaining_its, estimator.max_rel_em_conv,
+                    resume_state=resume, concat=concat,
+                )
+            else:
+                if stage_floor > 0:
+                    legs["escalated_on_device"] += len(task_inputs)
+                legs["device_em_tasks"] += len(task_inputs)
+                device_results = run_batched_em(
+                    task_inputs, estimator.max_em_its, estimator.max_rel_em_conv, device
+                )
+            device_of = dict(zip(device_tasks.tolist(), device_results))
+        else:
+            device_of = {}
+    clock.lap("device", "fused device EM leg")
+
+    # Post-EM tail (exact run_batched_em/run_native_em semantics): the
+    # kernel already folded these results into its per-slot combine;
+    # they are re-derived only for the Gibbs sampler's inputs and the
+    # combine of the slots whose EM was deferred.
+    slot_of_task = np.repeat(np.arange(len(meta)), n_tasks)
+
+    def task_em_result(t):
+        if has_fracs[t]:
+            # Collapse preserves the (integral) read-count total, so
+            # the cluster total is exact for the per-task sum.
+            return em_postprocess(
+                fracs_all[fr_bounds[t] : fr_bounds[t + 1]],
+                float(totals[slot_of_task[t]]),
+            )
+        return device_of[t]
+
+    # Read-count Gibbs sampling per selected subset (the posterior phase
+    # took no keys in this configuration, so each cluster's key chain and
+    # numpy stream start fresh at its rank).
+    if estimator.num_gibbs_samples > 0:
+        jobs = []  # (slot, key_idx, task_id, n_here)
+        key_ranks = []
+        max_depth = 0
+        for slot, ci in enumerate(meta):
+            np_rng = np.random.default_rng((rng_seed, rank_of(ci)))
+            remaining_gibbs = estimator.num_gibbs_samples
+            remaining_prob = 1.0
+            key_count = 0
+            for t in range(int(task_bounds[slot]), int(task_bounds[slot + 1])):
+                if remaining_gibbs > 0:
+                    sp = float(sp_arr[t])
+                    n_here = int(
+                        np_rng.binomial(
+                            remaining_gibbs, min(1.0, sp / remaining_prob)
+                        )
+                    )
+                    remaining_gibbs -= n_here
+                    remaining_prob -= sp
+                    if n_here > 0:
+                        jobs.append((slot, key_count, t, n_here))
+                        key_count += 1
+            if key_count:
+                key_ranks.append(ci)
+                max_depth = max(max_depth, key_count)
+
+        if jobs:
+            chains = prng.key_chains(rng_seed, [rank_of(ci) for ci in key_ranks], max_depth)
+            chain_of = {ci: chains[i] for i, ci in enumerate(key_ranks)}
+
+            inputs = []
+            keys = []
+            for slot, key_idx, t, _ in jobs:
+                matrix, counts = task_matrix(t)
+                abundances, noise_count = task_em_result(t)
+                inputs.append(
+                    (matrix, counts, np.asarray(abundances), noise_count, float(totals[slot]))
+                )
+                keys.append(chain_of[meta[slot]][key_idx])
+            for (slot, _, t, n_here), (noise_samples, path_samples) in zip(
+                jobs,
+                run_batched_gibbs(
+                    inputs, keys, [job[3] for job in jobs], estimator.gibbs_thin_its, 1.0,
+                    device,
+                ),
+            ):
+                _attach_gibbs_samples(
+                    cluster_data[meta[slot]][0],
+                    collapsed_all[col_bounds[t] : col_bounds[t + 1]].tolist(),
+                    noise_samples[:n_here],
+                    path_samples[:n_here],
+                )
+        legs["gibbs_jobs"] += len(jobs)
+        clock.lap(PHASES[4][0], f"{PHASES[4][1]} ({len(jobs)} jobs)")
+
+    # Per-cluster posterior-weighted combination: the kernel already
+    # combined every slot whose EM ran natively; the slots whose EM was
+    # deferred combine in one threaded native call (the per-slot Python
+    # combine only without the library).
+    combined = streams["combined"].astype(bool)
+    n_sets = streams["n_sets"]
+    set_bounds = np.zeros(len(meta) + 1, dtype=np.int64)
+    np.cumsum(n_sets, out=set_bounds[1:])
+    set_lens = streams["set_lens"]
+    len_bounds = np.zeros(set_lens.size + 1, dtype=np.int64)
+    np.cumsum(set_lens, out=len_bounds[1:])
+    set_ids_all = streams["set_ids"]
+    set_post_all = streams["set_posteriors"]
+    set_ab_all = streams["set_abundances"]
+
+    noncomb = np.flatnonzero(~combined)
+    native_combined = None
+    if noncomb.size:
+        native_combined = _native_combine_slots(
+            cluster_data, meta, noncomb, task_bounds, col_bounds,
+            sp_arr, n_col_arr, collapsed_all, mult_all, totals,
+            task_em_result,
+        )
+    if native_combined is not None:
+        (nc_n_sets, nc_noise, nc_set_lens, nc_set_ids,
+         nc_set_post, nc_set_ab) = native_combined
+        nc_set_bounds = np.zeros(noncomb.size + 1, dtype=np.int64)
+        np.cumsum(nc_n_sets, out=nc_set_bounds[1:])
+        nc_len_bounds = np.zeros(nc_set_lens.size + 1, dtype=np.int64)
+        np.cumsum(nc_set_lens, out=nc_len_bounds[1:])
+        for k, slot in enumerate(noncomb):
+            est = cluster_data[meta[slot]][0]
+            est.total_count = float(totals[slot])
+            lo, hi = int(nc_set_bounds[k]), int(nc_set_bounds[k + 1])
+            id_lo, id_hi = int(nc_len_bounds[lo]), int(nc_len_bounds[hi])
+            est.path_group_sets = GroupSetViews(nc_set_ids, nc_len_bounds, lo, hi)
+            est.posteriors = nc_set_post[lo:hi]
+            est.abundances = nc_set_ab[id_lo:id_hi]
+            est.noise_count = float(nc_noise[k])
+
+    for slot, ci in enumerate(meta):
+        est = cluster_data[ci][0]
+        if not combined[slot] and native_combined is not None:
+            continue
+        total_count = float(totals[slot])
+        est.total_count = total_count
+
+        if combined[slot]:
+            lo, hi = int(set_bounds[slot]), int(set_bounds[slot + 1])
+            id_lo, id_hi = int(len_bounds[lo]), int(len_bounds[hi])
+            # Zero-copy views over the kernel's streams (list-equivalent
+            # for consumers; the composer reads the streams directly).
+            est.path_group_sets = GroupSetViews(set_ids_all, len_bounds, lo, hi)
+            est.posteriors = set_post_all[lo:hi]
+            est.abundances = set_ab_all[id_lo:id_hi]
+            est.noise_count = float(streams["slot_noise"][slot])
+            continue
+
+        gid_of = [info.group_id for info in est.paths]
+        group_estimates: Dict[tuple, List] = {}
+        sum_hap_prob = 0.0
+
+        for t in range(int(task_bounds[slot]), int(task_bounds[slot + 1])):
+            path_counts, noise_count = task_em_result(t)
+
+            # combine_subset_tasks semantics (reference
+            # inferPathSubsetAbundance :608-750 combine tail), reading
+            # collapsed/multiplicity arrays: the expanded sorted subset
+            # splits by transcript group in first-seen order, each slot
+            # position receiving abundance * prob / multiplicity.
+            sp = float(sp_arr[t])
+            sum_hap_prob += sp
+            est.noise_count += noise_count * sp
+
+            by_group_paths: Dict[int, List[int]] = {}
+            by_group_vals: Dict[int, List[float]] = {}
+            mult_t = mult_all[col_bounds[t] : col_bounds[t + 1]]
+            for j, pid in enumerate(
+                collapsed_all[col_bounds[t] : col_bounds[t + 1]].tolist()
+            ):
+                m = int(mult_t[j])
+                g = gid_of[pid]
+                contrib = float(path_counts[j]) * sp / m
+                paths_list = by_group_paths.get(g)
+                if paths_list is None:
+                    paths_list = by_group_paths[g] = []
+                    by_group_vals[g] = []
+                vals_list = by_group_vals[g]
+                for _ in range(m):
+                    paths_list.append(pid)
+                    vals_list.append(contrib)
+
+            for g, group_paths in by_group_paths.items():
+                key = tuple(group_paths)
+                entry = group_estimates.get(key)
+                if entry is None:
+                    entry = group_estimates[key] = [0.0, [0.0] * len(group_paths)]
+                entry[0] += sp
+                vals = by_group_vals[g]
+                acc = entry[1]
+                for i in range(len(acc)):
+                    acc[i] += vals[i]
+
+        est.path_group_sets = []
+        est.posteriors = []
+        est.abundances = []
+        for key, (posterior, path_abundances) in group_estimates.items():
+            est.path_group_sets.append(list(key))
+            est.posteriors.append(posterior)
+            est.abundances.extend(path_abundances)
+
+        est.noise_count += (1.0 - sum_hap_prob) * est.total_count
+
+    if native_combined is not None:
+        # Interleave the kernel's set streams (combined slots) with the
+        # native-combine streams (deferred slots) in slot order, so the
+        # output composer sees every slot natively combined.
+        pos_in_nc = {int(s): k for k, s in enumerate(noncomb)}
+        lens_segs, post_segs, ids_segs, ab_segs = [], [], [], []
+        n_sets_merged = np.empty(len(meta), dtype=np.int64)
+        for slot in range(len(meta)):
+            if combined[slot]:
+                lo, hi = int(set_bounds[slot]), int(set_bounds[slot + 1])
+                id_lo, id_hi = int(len_bounds[lo]), int(len_bounds[hi])
+                lens_segs.append(set_lens[lo:hi])
+                post_segs.append(set_post_all[lo:hi])
+                ids_segs.append(set_ids_all[id_lo:id_hi])
+                ab_segs.append(set_ab_all[id_lo:id_hi])
+                n_sets_merged[slot] = hi - lo
+            else:
+                k = pos_in_nc[slot]
+                lo, hi = int(nc_set_bounds[k]), int(nc_set_bounds[k + 1])
+                id_lo, id_hi = int(nc_len_bounds[lo]), int(nc_len_bounds[hi])
+                lens_segs.append(nc_set_lens[lo:hi])
+                post_segs.append(nc_set_post[lo:hi])
+                ids_segs.append(nc_set_ids[id_lo:id_hi])
+                ab_segs.append(nc_set_ab[id_lo:id_hi])
+                n_sets_merged[slot] = hi - lo
+        cat = lambda segs, dt: (  # noqa: E731
+            np.concatenate(segs) if segs else np.empty(0, dtype=dt)
+        )
+        combined = np.ones(len(meta), dtype=bool)
+        n_sets = n_sets_merged
+        set_lens = cat(lens_segs, np.int64)
+        set_ids_all = cat(ids_segs, np.int64)
+        set_post_all = cat(post_segs, np.float64)
+        set_ab_all = cat(ab_segs, np.float64)
+
+    clock.lap("combine", f"fused combine ({T} tasks)")
+    return {
+        "meta": meta,
+        "combined": combined,
+        "n_sets": n_sets,
+        "set_lens": set_lens,
+        "set_ids": set_ids_all,
+        "set_posteriors": set_post_all,
+        "set_abundances": set_ab_all,
+    }
+
+
+def _merge_nested_columnar(estimator, col_parts) -> None:
+    """Stash the columnar set streams so the output phase can compose
+    the estimate files in C++ (pipeline._write_hapjoint_columnar)
+    without walking the per-cluster Python objects.  Slots that combined
+    in Python (device-routed or EM-deferred) have empty stream segments
+    — the composer splices their sets from the estimates — so merging
+    sections only interleaves the per-slot meta/flags in cluster order;
+    set streams concatenate as-is (the non-combined slots contribute
+    nothing and the combined slots stay in ascending cluster order)."""
+    parts = [p for p in col_parts if p["meta"]]
+    if not parts:
+        estimator._columnar_outputs = None
+        return
+    if len(parts) == 1:
+        # Single section: cluster ids are unique, so the (ci, pi, slot)
+        # tuple sort reduces to one argsort over the meta array.
+        meta_arr = np.asarray(parts[0]["meta"], dtype=np.int64)
+        perm = np.argsort(meta_arr)
+        meta = meta_arr[perm].tolist()
+        combined = np.asarray(parts[0]["combined"], dtype=bool)[perm]
+        n_sets = np.asarray(parts[0]["n_sets"], dtype=np.int64)[perm]
+        set_lens = parts[0]["set_lens"]
+        set_ids = parts[0]["set_ids"]
+        set_posteriors = parts[0]["set_posteriors"]
+        set_abundances = parts[0]["set_abundances"]
+    else:
+        order = sorted(
+            (
+                (ci, pi, slot)
+                for pi, p in enumerate(parts)
+                for slot, ci in enumerate(p["meta"])
+            ),
+        )
+        meta = [ci for ci, _, _ in order]
+        combined = np.array(
+            [parts[pi]["combined"][slot] for _, pi, slot in order], dtype=bool
+        )
+        n_sets = np.array(
+            [parts[pi]["n_sets"][slot] for _, pi, slot in order], dtype=np.int64
+        )
+        # Only combined slots own stream segments; they must land in
+        # merged meta order.  Gather each combined slot's segment.
+        lens_segs, post_segs, ids_segs, ab_segs = [], [], [], []
+        bounds = []
+        for p in parts:
+            sb = np.zeros(len(p["meta"]) + 1, dtype=np.int64)
+            np.cumsum(p["n_sets"], out=sb[1:])
+            lb = np.zeros(p["set_lens"].size + 1, dtype=np.int64)
+            np.cumsum(p["set_lens"], out=lb[1:])
+            bounds.append((sb, lb))
+        for _, pi, slot in order:
+            p = parts[pi]
+            sb, lb = bounds[pi]
+            lo, hi = int(sb[slot]), int(sb[slot + 1])
+            if lo == hi:
+                continue
+            lens_segs.append(p["set_lens"][lo:hi])
+            post_segs.append(p["set_posteriors"][lo:hi])
+            ids_segs.append(p["set_ids"][lb[lo] : lb[hi]])
+            ab_segs.append(p["set_abundances"][lb[lo] : lb[hi]])
+        cat = lambda segs, dt: (  # noqa: E731
+            np.concatenate(segs) if segs else np.empty(0, dtype=dt)
+        )
+        set_lens = cat(lens_segs, np.int64)
+        set_posteriors = cat(post_segs, np.float64)
+        set_ids = cat(ids_segs, np.int64)
+        set_abundances = cat(ab_segs, np.float64)
+
+    estimator._columnar_outputs = {
+        "kind": "sets",
+        "meta": meta,
+        "combined": combined,
+        "n_sets": n_sets,
+        "set_lens": set_lens,
+        "set_ids": set_ids,
+        "set_posteriors": set_posteriors,
+        "set_abundances": set_abundances,
     }
 
 
@@ -783,6 +1498,13 @@ def batched_transcripts(
         est = cluster_data[ci][0]
         est.abundances = list(map(float, abundances))
         est.noise_count = noise_count
+    # Per-path abundance streams for the native output composer
+    # (singleton group sets after reset(P, 1): one row per path).
+    estimator._columnar_outputs = {
+        "kind": "perpath",
+        "meta": meta,
+        "ab": [abundances for abundances, _ in em_results],
+    }
 
     gibbs_jobs = _first_key_gibbs(
         estimator, cluster_data, meta,
@@ -804,6 +1526,123 @@ def supports_batched_strains(estimator) -> bool:
     return isinstance(estimator, MinimumPathAbundanceEstimator)
 
 
+def _batched_strains_fused(
+    estimator, cluster_data, device: torch.device, rng_seed: int = 0, ranks=None
+) -> Optional[Dict]:
+    """The fused native route of ``strains`` on ``device``
+    (``_batched_strains_fused`` of the JAX package, ``batched_models.py:
+    1538-1637``): cover weights, greedy minimum path cover, cover
+    sub-matrix collapse and EM of every cluster in one threaded C++ call
+    (``native.strains_infer``), then with -n one read-count Gibbs run over
+    every cover on ``device``.  Returns None, with nothing inferred, when
+    the library is missing.  Phases: ``native``, ``combine`` (the cover
+    abundances) and ``D2`` (with -n)."""
+    from rpvg_tpu_torch import native
+
+    clock = _PhaseClock(device)
+    meta: List[int] = []
+    dense_clusters = []
+    for ci, (est, cluster_probs) in enumerate(cluster_data):
+        est.reset(len(est.paths), 1)
+        if not cluster_probs:
+            continue
+        dense_clusters.append(cluster_matrix(cluster_probs, len(est.paths)))
+        meta.append(ci)
+
+    emit = estimator.num_gibbs_samples > 0
+    streams = native.strains_infer(
+        dense_clusters,
+        estimator.prob_precision,
+        estimator.max_em_its,
+        estimator.max_rel_em_conv,
+        emit_matrices=emit,
+    )
+    if streams is None:
+        return None
+    clock.lap("native", "fused native pass")
+
+    n_cover = streams["n_cover"]
+    cover_bounds = np.zeros(len(meta) + 1, dtype=np.int64)
+    np.cumsum(n_cover, out=cover_bounds[1:])
+    kept = streams["kept"]
+    if emit:
+        mat_bounds = np.zeros(len(meta) + 1, dtype=np.int64)
+        np.cumsum(kept * (n_cover + 1), out=mat_bounds[1:])
+        cnt_bounds = np.zeros(len(meta) + 1, dtype=np.int64)
+        np.cumsum(kept, out=cnt_bounds[1:])
+
+    covered_slots = [s for s in range(len(meta)) if n_cover[s] > 0]
+    for slot in covered_slots:
+        ci = meta[slot]
+        est = cluster_data[ci][0]
+        est.total_count = float(streams["totals"][slot])
+        est.noise_count = float(streams["noise"][slot])
+        lo, hi = int(cover_bounds[slot]), int(cover_bounds[slot + 1])
+        abundances = est.abundances
+        for pid, v in zip(
+            streams["cover"][lo:hi].tolist(),
+            streams["path_counts"][lo:hi].tolist(),
+        ):
+            abundances[pid] += v
+    clock.lap("combine", "cover abundances")
+
+    gibbs_jobs = 0
+    if emit and covered_slots:
+        rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
+        keys = prng.first_keys(rng_seed, [rank_of(meta[s]) for s in covered_slots])
+        gibbs_inputs = []
+        for slot in covered_slots:
+            nc = int(n_cover[slot])
+            matrix = streams["mats"][mat_bounds[slot] : mat_bounds[slot + 1]].reshape(
+                int(kept[slot]), nc + 1
+            )
+            counts = streams["cnts"][cnt_bounds[slot] : cnt_bounds[slot + 1]]
+            lo, hi = int(cover_bounds[slot]), int(cover_bounds[slot + 1])
+            gibbs_inputs.append(
+                (
+                    matrix,
+                    counts,
+                    streams["path_counts"][lo:hi],
+                    float(streams["noise"][slot]),
+                    float(streams["totals"][slot]),
+                )
+            )
+        gibbs_results = run_batched_gibbs(
+            gibbs_inputs, keys, estimator.num_gibbs_samples, estimator.gibbs_thin_its, 1.0,
+            device,
+        )
+        for slot, (noise_samples, path_samples) in zip(covered_slots, gibbs_results):
+            lo, hi = int(cover_bounds[slot]), int(cover_bounds[slot + 1])
+            _attach_gibbs_samples(
+                cluster_data[meta[slot]][0],
+                streams["cover"][lo:hi].tolist(),
+                noise_samples,
+                path_samples,
+            )
+        gibbs_jobs = len(covered_slots)
+        clock.lap(PHASES[4][0], f"{PHASES[4][1]} ({gibbs_jobs} jobs)")
+
+    estimator._columnar_outputs = {
+        "kind": "cover",
+        "meta": [meta[s] for s in covered_slots],
+        "covers": [
+            streams["cover"][cover_bounds[s] : cover_bounds[s + 1]]
+            for s in covered_slots
+        ],
+        "ab": [
+            streams["path_counts"][cover_bounds[s] : cover_bounds[s + 1]]
+            for s in covered_slots
+        ],
+    }
+    return {
+        **clock.report(),
+        "route": "fused native",
+        "em_tasks": len(covered_slots),
+        "device_em_tasks": 0,
+        "gibbs_jobs": gibbs_jobs,
+    }
+
+
 def batched_strains(
     estimator, cluster_data, device: torch.device, rng_seed: int = 0, ranks=None
 ) -> Dict:
@@ -812,9 +1651,15 @@ def batched_strains(
     on the host, then one EM run over every cover, then with -n one Gibbs
     run over every cover.  Mutates the estimates in cluster_data in
     place; returns ``phase_seconds`` (C, D, D2 with -n, E), ``em_tasks``
-    and ``gibbs_jobs``."""
+    and ``gibbs_jobs``.  Under ``RPVG_TPU_FUSED_STRAINS`` (with the native
+    library) the fused native route runs instead
+    (:func:`_batched_strains_fused`)."""
     if not supports_batched_strains(estimator):
         raise NotImplementedError("only strains is ported here")
+    if fused_route_asked("RPVG_TPU_FUSED_STRAINS") and native_available():
+        stats = _batched_strains_fused(estimator, cluster_data, device, rng_seed, ranks)
+        if stats is not None:
+            return stats
     clock = _PhaseClock(device)
     rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
     tasks = []
@@ -851,6 +1696,13 @@ def batched_strains(
 
     for ci, task, (abundances, noise_count) in zip(meta, tasks, em_results):
         estimator.apply_cover_result(cluster_data[ci][0], task, abundances, noise_count)
+    # Per-cover abundance streams for the native output composer.
+    estimator._columnar_outputs = {
+        "kind": "cover",
+        "meta": meta,
+        "covers": [task["min_cover"] for task in tasks],
+        "ab": [abundances for abundances, _ in em_results],
+    }
     clock.lap("E", "cover abundances")
     return {**clock.report(), "em_tasks": len(tasks), "gibbs_jobs": gibbs_jobs}
 

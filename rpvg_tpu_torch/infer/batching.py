@@ -21,10 +21,23 @@ padded chunk whose batch divides the shard count.  Either way CUDA
 tensors go to a kernel and CPU tensors to its plain version, and
 sub-threshold mass is folded on the host, returning the
 ``(path read counts, noise count)`` contract of ``gather_em_device``.
-On the CPU, :func:`run_batched_em` takes the JAX package's own CPU
-route when the native library is loaded: :func:`run_native_em` (a
-verbatim copy), whose results are bitwise the JAX package's, so that
-Gibbs chains started from them draw the same samples.
+On the CPU, :func:`run_batched_em` and :func:`dispatch_em_device` take
+the JAX package's own CPU route when the native library is loaded:
+:func:`run_native_em` (a verbatim copy), whose results are bitwise the
+JAX package's, so that Gibbs chains started from them draw the same
+samples.
+
+The JAX package's device solve takes ``stage_floor`` for the fused
+nested route's escalated tasks: it caps a solve at 128 and 1,024
+iterations, re-runs only the clusters that have not converged at the
+next cap, skips the caps at or below ``stage_floor`` and pads every
+column axis of a small escalated set alike to limit recompiles
+(``rpvg_tpu/infer/em.py:174-232``, ``batching.py:307-315``).  The
+port's kernels run every task to its own convergence or ``max_em_its``
+and compile once for every shape, so neither would change a result
+here and the port takes no ``stage_floor``: an escalated task re-runs
+from scratch on the device, up to ``max_em_its``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -434,33 +447,52 @@ def dispatch_em_device(
     max_rel_em_conv: float,
     device: torch.device,
     max_bucket_rows: int = 4096,
-) -> List[Tuple[List[int], torch.Tensor]]:
+) -> List[Tuple[List[int], object]]:
     """Launch the indexed tasks' EM on the data shards of ``device``
     without waiting: per group of :func:`plan_em_groups`, each chunk's
     block split over the shards when its batch divides their count, else
     whole on the first (:func:`~rpvg_tpu_torch.parallel.autoshard.
     shard_batched`), then one :func:`em_fused_cuda.em_fixed_point_padded`
     call per shard on that shard's blocks.  Returns (chunk indices, (B, C)
-    fractions) per shard's part of a chunk for :func:`gather_em_device`."""
+    fractions) per shard's part of a chunk for :func:`gather_em_device`.
+
+    On CUDA the call returns while its kernels run: the blocks go up from
+    page-locked copies without waiting for the stream, and each cluster's
+    extent is read from the host block, not back from the card, so the
+    caller's host work overlaps the device's (the fused nested route's
+    second native pass).  On the CPU the native kernel runs instead, as
+    in :func:`run_batched_em_packed`, unless ``RPVG_TPU_NATIVE_EM=0`` or
+    :func:`fuse_em_enabled`; its entries hold the folded results."""
+    indices = list(indices)
+    if device.type == "cpu" and not fuse_em_enabled() and native_em_available():
+        if not indices:
+            return []
+        return [(indices, run_native_em(
+            [cluster_inputs[idx] for idx in indices], max_em_its, max_rel_em_conv
+        ))]
     devices = autoshard.data_devices(device)
     pending = []
     per_shard = [0] * len(devices)
     for group in plan_em_groups(cluster_inputs, indices, max_bucket_rows):
         shard_blocks = [[] for _ in devices]
         for chunk, R_pad, C_pad in group:
-            parts = autoshard.shard_batched(
-                devices, *_block_arrays(cluster_inputs, chunk, R_pad, C_pad)
-            )
+            arrays = _block_arrays(cluster_inputs, chunk, R_pad, C_pad)
+            extents = em_fused_cuda.cluster_extents([arrays])
+            parts = autoshard.shard_batched(devices, *arrays)
             size = len(chunk) // len(parts)
             for s, block in enumerate(parts):
-                shard_blocks[s].append((list(chunk[s * size : (s + 1) * size]), block))
+                part = slice(s * size, (s + 1) * size)
+                shard_blocks[s].append((list(chunk[part]), block, extents[part]))
         for s, items in enumerate(shard_blocks):
             if items:
                 fracs, _ = em_fused_cuda.em_fixed_point_padded(
-                    [block for _, block in items], max_em_its, max_rel_em_conv
+                    [block for _, block, _ in items], max_em_its, max_rel_em_conv,
+                    np.concatenate([extents for _, _, extents in items]),
                 )
-                pending.extend((members, block_fracs) for (members, _), block_fracs in zip(items, fracs))
-                per_shard[s] += sum(len(members) for members, _ in items)
+                pending.extend(
+                    (members, block_fracs) for (members, _, _), block_fracs in zip(items, fracs)
+                )
+                per_shard[s] += sum(len(members) for members, _, _ in items)
     autoshard.record(per_shard)
     return pending
 
@@ -468,8 +500,13 @@ def dispatch_em_device(
 def gather_em_device(pending, cluster_inputs, results) -> None:
     """Wait for the pending chunks and fill ``results`` with the (path
     read counts, noise count) contract (sub-threshold folding in f64 on
-    the host, exactly like the native kernel's tail)."""
+    the host, exactly like the native kernel's tail; the native CPU
+    route's entries are already folded)."""
     for chunk, fracs in pending:
+        if isinstance(fracs, list):
+            for idx, result in zip(chunk, fracs):
+                results[idx] = result
+            continue
         fracs = fracs.cpu().numpy()
         for b, idx in enumerate(chunk):
             probs, counts = cluster_inputs[idx]

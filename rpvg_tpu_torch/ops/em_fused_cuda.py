@@ -51,11 +51,14 @@ Block = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def em_fixed_point_padded(
-    blocks: Sequence[Block], max_em_its: int, max_rel_em_conv: float
+    blocks: Sequence[Block], max_em_its: int, max_rel_em_conv: float, extents=None
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """(per block (B, C) fractions, per block (B,) iterations), on the
     blocks' device.  CUDA tensors go to the kernel in one launch, CPU
-    tensors to the plain version."""
+    tensors to the plain version.  ``extents``: :func:`cluster_extents`
+    of the blocks, computed on their host copies where the caller has
+    them; the call then reads nothing back from the card and returns
+    while the kernel runs."""
     if not blocks:
         return [], []
     device = blocks[0][0].device
@@ -63,7 +66,7 @@ def em_fixed_point_padded(
         return em_fixed_point_padded_plain(blocks, max_em_its, max_rel_em_conv)
     if device.type != "cuda":
         raise ValueError(f"em_fixed_point_padded: unsupported device {device}")
-    return _launch(blocks, max_em_its, max_rel_em_conv)
+    return _launch(blocks, max_em_its, max_rel_em_conv, extents)
 
 
 def em_fixed_point_padded_plain(
@@ -114,28 +117,23 @@ def _check_blocks(blocks: Sequence[Block], device: torch.device) -> None:
             )
 
 
-def cluster_extents(blocks: Sequence[Block]) -> np.ndarray:
+def cluster_extents(blocks) -> np.ndarray:
     """(n_clusters, 2) host array of each padded cluster's extent, as the
     kernel finds it: rows up to the last nonzero count, columns up to the
-    last column with a positive mask."""
-    device = blocks[0][1].device
-    B = np.array([c.shape[0] for _, c, _ in blocks], dtype=np.int64)
-    extents = []
-    for k, pad in ((1, [c.shape[1] for _, c, _ in blocks]), (2, [m.shape[1] for _, _, m in blocks])):
-        pad = np.repeat(np.asarray(pad, dtype=np.int64), B)  # per cluster
-        position = np.arange(int(pad.sum())) - np.repeat(np.cumsum(pad) - pad, pad) + 1
-        cluster = np.repeat(np.arange(pad.size), pad)
-        values = torch.cat([block[k].reshape(-1) for block in blocks])
-        on = (values != 0) if k == 1 else (values > 0)
-        last = torch.zeros(pad.size, dtype=torch.int64, device=device)
-        last.scatter_reduce_(
-            0, to_device(cluster, device), torch.where(on, to_device(position, device), 0), "amax"
-        )
-        extents.append(last)
-    return torch.stack(extents, dim=1).cpu().numpy()
+    last column with a positive mask.  ``blocks`` are (probs, counts,
+    col_masks) as numpy arrays or tensors; a CUDA block's counts and
+    masks are read back from the card."""
+    def last(on):
+        return np.where(on.any(axis=1), on.shape[1] - np.argmax(on[:, ::-1], axis=1), 0)
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    extents = [np.stack([last(host(c) != 0), last(host(m) > 0)], axis=1) for _, c, m in blocks]
+    return np.concatenate(extents).astype(np.int64).reshape(-1, 2)
 
 
-def _launch(blocks: Sequence[Block], max_em_its: int, max_rel_em_conv: float):
+def _launch(blocks: Sequence[Block], max_em_its: int, max_rel_em_conv: float, extents=None):
     global LAUNCHES, TASKS, BLOCKS
     device = blocks[0][0].device
     _check_blocks(blocks, device)
@@ -158,7 +156,9 @@ def _launch(blocks: Sequence[Block], max_em_its: int, max_rel_em_conv: float):
     fracs = torch.empty(int(col_off[-1]), dtype=torch.float64, device=device)
     iters = torch.empty(n_clusters, dtype=torch.int64, device=device)
     if n_clusters:
-        extents = cluster_extents(blocks)
+        if extents is None:
+            extents = cluster_extents(blocks)
+        extents = np.asarray(extents, dtype=np.int64).reshape(n_clusters, 2)
         launches = plan_launches(
             extents[:, 0], extents[:, 1], KERNEL_NAME, strides=np.repeat(C, B)
         )

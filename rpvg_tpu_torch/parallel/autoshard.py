@@ -100,11 +100,21 @@ def shard_batched(devices: Sequence[torch.device], *arrays) -> List[Tuple[torch.
                for a in arrays]
     n = len(devices)
     if n == 1 or any(t.shape[0] % n for t in tensors):
-        return [tuple(t.to(devices[0]) for t in tensors)]
+        return [tuple(_to_device(t, devices[0]) for t in tensors)]
     return [
-        tuple(t[s * (t.shape[0] // n) : (s + 1) * (t.shape[0] // n)].to(device) for t in tensors)
+        tuple(_to_device(t[s * (t.shape[0] // n) : (s + 1) * (t.shape[0] // n)], device)
+              for t in tensors)
         for s, device in enumerate(devices)
     ]
+
+
+def _to_device(tensor: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``tensor`` on ``device``; a host tensor goes to a CUDA device from
+    a page-locked copy without waiting for the stream (a copy from
+    pageable memory would wait for the kernels already queued)."""
+    if device.type == "cuda" and tensor.device.type == "cpu":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
 
 
 def shard_tasks(shapes, n: int) -> List[Tuple[int, int]]:

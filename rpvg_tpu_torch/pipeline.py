@@ -1249,9 +1249,10 @@ def run_inference_phases(
             and all(entry[2] is not None for fl in per_cluster for entry in fl)
         )
         prob_texts = None
+        path_meta = None
         if cols is not None:
             id_concat, id_offsets = clusters.members_concat(order)
-            matrix_results, prob_texts, _ = build_cluster_matrices_columnar(
+            matrix_results, prob_texts, path_meta = build_cluster_matrices_columnar(
                 config, paths_index, frag_length_dist,
                 split_by_bounds(id_concat, id_offsets), cols,
                 [entry_idx_per_cluster[ci] for ci in order],
@@ -1353,7 +1354,13 @@ def run_inference_phases(
 
         t_out = time.perf_counter()
         if not skip_outputs:
-            write_outputs(config, results, fragment_index.unaligned_count)
+            # The native output composer reads the streams the route left
+            # (RPVG_TPU_COMPOSE_OUT=0: the object writers).
+            write_outputs(
+                config, results, fragment_index.unaligned_count,
+                columnar=getattr(estimator, "_columnar_outputs", None),
+                path_meta=path_meta,
+            )
         output_seconds = time.perf_counter() - t_out
         # Join both writers before publishing either; the wait for the
         # _gibbs.txt.gz thread's compression is timed on its own.

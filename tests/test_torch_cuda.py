@@ -853,3 +853,139 @@ def _hold_k_slot_to_plain(cuda, module, clusters, k, key=11):
             assert tv < 0.05, (b, tv)
     return jobs, diverged
 
+
+
+# ----------------------------------------- the fused native routes' legs
+
+_FUSED_PANEL = {}
+
+
+@pytest.fixture
+def fused_panel(cuda, tmp_path_factory):
+    """80 genes x 3 isoforms x 4 haplotypes, 3,000 multipath read pairs."""
+    if not _FUSED_PANEL:
+        from rpvg_tpu_torch import sim
+
+        work = tmp_path_factory.mktemp("fused_panel")
+        panel = sim.build_gene_panel(
+            num_genes=80, isoforms_per_gene=3, num_haplotypes=4,
+            exons_per_gene=5, exon_length=100, variant_sites=3, seed=61,
+        )
+        records, _ = sim.simulate_read_pairs(
+            panel, 3000, read_length=80, frag_mean=200, frag_sd=20, seed=63,
+            abundances=sim.gene_abundances(panel, seed=67), multipath_dag=True,
+        )
+        files = {n: str(work / n) for n in ("graph.json", "panel.json", "aln.json", "info.tsv")}
+        sim.write_alignment_json(records, files["aln.json"])
+        panel.write_graph_json(files["graph.json"])
+        panel.write_panel_json(files["panel.json"])
+        panel.write_info_tsv(files["info.tsv"])
+        _FUSED_PANEL.update(files)
+    return dict(_FUSED_PANEL)
+
+
+# (leg, its switches, the kernel it launches, its counter in the stats)
+FUSED_LEGS = [
+    ("escalation", {"RPVG_TPU_EM_BOUND": "3", "RPVG_TPU_ESC_MIN_AREA": "0"}, "ragged",
+     "escalated_on_device"),
+    ("escalation_default", {"RPVG_TPU_EM_BOUND": "3"}, "ragged", "escalated_on_device"),
+    ("deferral", {"RPVG_TPU_HYBRID_EM_AREA": "8"}, "ragged", "deferred_tasks"),
+    ("slots", {"RPVG_TPU_DEVICE_SLOT_AREA": "500"}, "fused", "routed_slots"),
+]
+
+
+@pytest.mark.parametrize("leg,switches,kernel,counter", FUSED_LEGS,
+                         ids=[leg[0] for leg in FUSED_LEGS])
+def test_fused_nested_leg_on_cuda_matches_cpu(cuda, fused_panel, leg, switches, kernel,
+                                              counter, tmp_path, monkeypatch):
+    """Each device leg of the fused nested route on cuda launches its EM
+    kernel (the ragged kernel for the escalated tail and the deferred
+    tasks, the multi-bucket kernel for slot routing) on
+    every task the leg took, and the estimate files match the all-native
+    fused run on the CPU within rtol 1e-6 with identical rows."""
+    import os
+
+    from rpvg_tpu_torch import cli
+    from rpvg_tpu_torch.compare import compare_estimate_files
+
+    monkeypatch.setenv("RPVG_TPU_FUSED_NESTED", "1")
+    assert cli.main(_nested_argv(fused_panel, str(tmp_path / "cpu"), "cpu")) == 0
+    for name, value in switches.items():
+        monkeypatch.setenv(name, value)
+    module = em_cuda if kernel == "ragged" else em_fused_cuda
+    launches, tasks = module.LAUNCHES, module.TASKS
+    rc, stats = cli.run_cli(_nested_argv(fused_panel, str(tmp_path / "cuda"), "cuda"))
+    assert rc == 0 and stats["route"] == "fused native"
+    assert stats[counter] > 0 and stats["device_em_tasks"] > 0
+    assert module.LAUNCHES > launches
+    assert module.TASKS == tasks + stats["device_em_tasks"]
+    for suffix in (".txt", "_joint.txt"):
+        report = compare_estimate_files(
+            os.path.join(tmp_path, "cuda" + suffix), os.path.join(tmp_path, "cpu" + suffix),
+            1e-6, 1e-6,
+        )
+        assert report["rows"] > 0
+
+
+@pytest.mark.parametrize("model,switch", [
+    ("haplotype-transcripts", "RPVG_TPU_FUSED_NESTED"), ("strains", "RPVG_TPU_FUSED_STRAINS"),
+])
+def test_fused_route_gibbs_on_cuda(cuda, fused_panel, model, switch, tmp_path, monkeypatch):
+    """-n 8 on a fused route: every Gibbs job in the read-count kernel;
+    the estimate files match the CPU run within rtol 1e-6 and the
+    _gibbs.txt.gz rows agree in distribution (row means within 6 standard
+    errors, as chip_smoke.py holds them)."""
+    import math
+    import os
+
+    from rpvg_tpu_torch import cli
+    from rpvg_tpu_torch.compare import compare_estimate_files, compare_gibbs_files
+
+    monkeypatch.setenv(switch, "1")
+    argv = lambda prefix, backend: _nested_argv(  # noqa: E731
+        fused_panel, str(tmp_path / prefix), backend, ("-n", "8"))
+    if model == "strains":
+        argv = lambda prefix, backend: [  # noqa: E731
+            "-g", fused_panel["graph.json"], "-p", fused_panel["panel.json"],
+            "-a", fused_panel["aln.json"], "-o", str(tmp_path / prefix), "-i", "strains",
+            "-r", "5", "--score-not-qual", "--backend", backend, "-n", "8"]
+    jobs = gibbs_cuda.JOBS
+    rc, stats = cli.run_cli(argv("cuda", "cuda"))
+    assert rc == 0 and stats["route"] == "fused native" and stats["gibbs_jobs"] > 0
+    assert gibbs_cuda.JOBS == jobs + stats["gibbs_jobs"]
+    assert cli.main(argv("cpu", "cpu")) == 0
+    for suffix in (".txt", "_joint.txt") if model != "strains" else (".txt",):
+        compare_estimate_files(os.path.join(tmp_path, "cuda" + suffix),
+                               os.path.join(tmp_path, "cpu" + suffix), 1e-6, 1e-6)
+    report = compare_gibbs_files(os.path.join(tmp_path, "cuda_gibbs.txt.gz"),
+                                 os.path.join(tmp_path, "cpu_gibbs.txt.gz"), 6.0, same_rows=True)
+    assert report["rows"] > 0
+    assert report["outside"] <= max(4, math.ceil(0.005 * report["rows"]))
+
+
+def test_dispatch_em_device_returns_before_its_kernels_finish(cuda):
+    """dispatch_em_device queues its copies and launches and returns: an
+    event recorded on the stream just after it has not completed, and
+    gather_em_device does the waiting."""
+    import time
+
+    task_list = em_task_set(512, seed=71)
+    indices = range(len(task_list))
+    warm = [None] * len(task_list)
+    batching.gather_em_device(
+        batching.dispatch_em_device(task_list, indices, 10000, 1e-3, cuda), task_list, warm
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = batching.dispatch_em_device(task_list, indices, 20000, 1e-300, cuda)
+    returned = time.perf_counter() - t0
+    after = torch.cuda.Event()
+    after.record()
+    assert not after.query(), "the dispatch waited for its kernels"
+    results = [None] * len(task_list)
+    t0 = time.perf_counter()
+    batching.gather_em_device(pending, task_list, results)
+    waited = time.perf_counter() - t0
+    assert after.query() and waited > 0
+    assert all(r is not None for r in results)
+    print(f"dispatch returned in {returned * 1e3:.3f} ms, gather waited {waited * 1e3:.3f} ms")

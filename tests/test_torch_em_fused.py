@@ -74,6 +74,9 @@ def _results_close(got, want):
 
 @pytest.mark.parametrize("fuse", ["0", "1"])
 def test_dispatch_matches_reference_dispatch_and_native(fuse, monkeypatch):
+    # The plain padded route (with the native EM, the CPU dispatch takes
+    # run_native_em as run_batched_em does).
+    monkeypatch.setenv("RPVG_TPU_NATIVE_EM", "0")
     monkeypatch.setenv("RPVG_TPU_FUSE_EM", fuse)
     tasks = em_task_set(300, seed=23)
     indices = list(range(len(tasks)))

@@ -206,7 +206,10 @@ VERBATIM = [
     )
 ] + [
     (port_batched_models, ref_batched_models, name)
-    for name in ("_flat_group_spec", "_attach_gibbs_samples")
+    for name in (
+        "_flat_group_spec", "_attach_gibbs_samples", "_native_combine_slots",
+        "_task_matrix_bounds", "_section_task_matrices", "_merge_nested_columnar",
+    )
 ] + [
     (port_posteriors, ref_posteriors, name)
     for name in (

@@ -1,18 +1,22 @@
 """rpvg_tpu_torch: the PyTorch / CUDA port of rpvg_tpu.
 
 The port keeps the JAX package's module names so a reader can find each
-counterpart.  It runs all four models end to end without Gibbs sampling
-(``haplotypes`` and ``haplotype-transcripts`` at ploidy 2):
+counterpart.  It runs every configuration of the JAX package's CLI: the
+four models, read-count Gibbs sampling (``-n``), ``haplotypes`` and
+``haplotype-transcripts`` at every ploidy, ``--use-hap-gibbs``,
+``--ind-hap-inference``, ``--multiprocess`` and the fused native routes;
+``python -m rpvg_tpu_torch.tools`` converts inputs (``json-to-rpa``,
+``gamp-to-json``):
 
 * host half: the port's own copies of the JAX package's framework-free
   modules (projection, clustering, probability matrices, the C++ library
-  in ``csrc/host``, the writers), byte for byte as they are there
-  (``tests/test_torch_host_copies.py`` pins each copy);
-* device half: diploid pair scoring as a torch op and the EM fixed
-  point as hand-written CUDA kernels (``csrc/em_fixed_point.cu`` over
-  ragged tasks, ``csrc/em_fused.cu`` over padded shape buckets, both on
-  the per-task loop of ``csrc/em_task.cuh``), each with a plain PyTorch
-  version that CPU tensors run through.
+  in ``csrc/host``, the writers, the input tools), byte for byte as they
+  are there (``tests/test_torch_host_copies.py`` pins each copy);
+* device half: the EM fixed point, the Gibbs samplers and the multiset
+  group scorer as hand-written CUDA kernels (``csrc/*.cu``), each with a
+  plain PyTorch version that CPU tensors run through; diploid pair
+  scoring as a torch op on ``cuda`` and, on ``cpu``, in the C++
+  library, as the JAX package scores it off the TPU.
 
 Numerics are float64 throughout (the reference contract).  The package
 imports torch and never jax or ``rpvg_tpu``.

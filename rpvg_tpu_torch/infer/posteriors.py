@@ -338,6 +338,79 @@ def _score_chunks(cluster_inputs, buckets, devices: Sequence[torch.device]):
             yield chunk, pair_ll_dev, shard
 
 
+def _diploid_posteriors_native(cluster_inputs, min_rel_likelihood: float):
+    """CPU speed path: fused ragged pair scoring + selection +
+    normalisation on worker threads (no padding, no shape buckets, no
+    per-cluster Python) — identical to scoring then _diploid_select.
+    Returns None when the C++ library is unavailable or disabled
+    (RPVG_TPU_NATIVE_EM=0 governs the CPU native kernels)."""
+    import ctypes
+    import os
+
+    from .batching import native_em_available
+
+    if not native_em_available():
+        return None
+    from rpvg_tpu_torch.native import load_library
+
+    lib = load_library()
+    n = len(cluster_inputs)
+    if n == 0:
+        return []
+    n_rows = np.fromiter((p.shape[0] for p, _, _, _ in cluster_inputs), np.int64, n)
+    n_cols = np.fromiter((p.shape[1] for p, _, _, _ in cluster_inputs), np.int64, n)
+    mat_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_rows * n_cols, out=mat_offsets[1:])
+    row_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_rows, out=row_offsets[1:])
+    col_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_cols, out=col_offsets[1:])
+    tri = n_cols * (n_cols + 1) // 2
+    tri_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(tri, out=tri_offsets[1:])
+
+    probs_concat = np.concatenate(
+        [np.ascontiguousarray(p, dtype=np.float64).ravel() for p, _, _, _ in cluster_inputs]
+    )
+    noise_concat = np.concatenate(
+        [np.asarray(x, dtype=np.float64) for _, x, _, _ in cluster_inputs]
+    )
+    counts_concat = np.concatenate(
+        [np.asarray(x, dtype=np.float64) for _, _, x, _ in cluster_inputs]
+    )
+    # log frequency priors, segment-normalised in one vectorised pass.
+    pc_concat = np.concatenate(
+        [np.asarray(pc, dtype=np.float64) for _, _, _, pc in cluster_inputs]
+    )
+    seg_totals = np.add.reduceat(pc_concat, col_offsets[:-1])
+    lf_concat = np.log(pc_concat / np.repeat(seg_totals, n_cols))
+
+    out_nkeep = np.zeros(n, dtype=np.int64)
+    out_pairs = np.empty(2 * int(tri_offsets[-1]), dtype=np.int32)
+    out_post = np.empty(int(tri_offsets[-1]), dtype=np.float64)
+
+    as_f64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))  # noqa: E731
+    as_i64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))  # noqa: E731
+    lib.rpvg_diploid_posteriors_ragged(
+        as_f64(probs_concat), as_f64(noise_concat), as_f64(counts_concat),
+        as_f64(lf_concat), as_i64(mat_offsets), as_i64(row_offsets),
+        as_i64(col_offsets), as_i64(tri_offsets), as_i64(n_rows), as_i64(n_cols),
+        n, float(min_rel_likelihood), int(min(16, os.cpu_count() or 1)),
+        as_i64(out_nkeep),
+        out_pairs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        as_f64(out_post),
+    )
+
+    results = []
+    for b in range(n):
+        kept = int(out_nkeep[b])
+        base = int(tri_offsets[b])
+        pairs = out_pairs[2 * base : 2 * (base + kept)].reshape(kept, 2)
+        groups = pairs.tolist()
+        results.append((groups, out_post[base : base + kept]))
+    return results
+
+
 def diploid_posteriors_batched(
     cluster_inputs,
     min_rel_likelihood: float,
@@ -351,8 +424,16 @@ def diploid_posteriors_batched(
     most 2**24 padded pair-tensor elements at a time; a cluster whose
     padded (R, P, P) tensor exceeds the giant-cluster guard is scored
     alone, its pair rows split over the data shards or in column blocks.
-    The chunks spread over the data shards of ``device``.
+    The chunks spread over the data shards of ``device``.  On ``cpu``
+    the native library scores, selects and normalises every cluster
+    (the JAX package's route off the TPU, so the same bits) unless
+    ``RPVG_TPU_NATIVE_EM=0`` or the library is missing.
     Returns per cluster (group_sets, posteriors)."""
+    if device.type == "cpu":
+        native_results = _diploid_posteriors_native(cluster_inputs, min_rel_likelihood)
+        if native_results is not None:
+            _count_scored(device, len(cluster_inputs))
+            return native_results
     buckets, giant_idx = _bucket_plan(cluster_inputs)
     results = [None] * len(cluster_inputs)
     select_jobs = []  # (idx, (P, P) score matrix)

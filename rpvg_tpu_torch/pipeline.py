@@ -7,8 +7,10 @@ tests/test_torch_slice.py pins every copy against its original.  They
 are copied, not imported, because ``rpvg_tpu.pipeline`` imports jax.
 
 Only :func:`run_pipeline` and :func:`run_inference_phases` are
-rewritten: the device is passed down explicitly, and there is no
-backend probe, watchdog or ``jax.profiler`` hook.  Every configuration
+rewritten: the device is passed down explicitly, there is no backend
+probe or watchdog, and ``RPVG_TPU_TORCH_PROFILE=<dir>`` takes the place
+of the ``jax.profiler`` hook (a ``torch.profiler`` Chrome trace of the
+batched dispatch per call).  Every configuration
 of the JAX package runs: the four inference models, read-count Gibbs
 sampling (``-n``), ``haplotypes`` and ``haplotype-transcripts`` at every
 ploidy, ``--use-hap-gibbs`` and ``--ind-hap-inference``; the
@@ -17,6 +19,7 @@ multi-process entry points are in :mod:`rpvg_tpu_torch.parallel.multihost`.
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import sys
@@ -1075,6 +1078,39 @@ def run_pipeline(config: PipelineConfig, device: torch.device) -> Dict:
     return stats
 
 
+_PROFILE_CALLS = itertools.count()
+
+
+def _start_profile(device: torch.device):
+    """``RPVG_TPU_TORCH_PROFILE=<dir>``: a ``torch.profiler`` session over
+    the batched dispatch, the span the JAX package's
+    ``RPVG_TPU_JAX_PROFILE`` traces, with host activity always and the
+    card's (kernels, copies, sets on every stream) on ``cuda``.  Returns
+    None, having called nothing, when the switch is unset."""
+    profile_dir = os.environ.get("RPVG_TPU_TORCH_PROFILE")
+    if not profile_dir:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    session = profile(activities=activities)
+    session.__enter__()
+    return session, profile_dir
+
+
+def _finish_profile(profile) -> None:
+    """Stop the session and write its Chrome trace into the switch's
+    directory, named by process id and call number: shards, ranks and
+    forked workers each run the inference phases."""
+    session, profile_dir = profile
+    session.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    name = f"rpvg_torch_{os.getpid()}_{next(_PROFILE_CALLS)}.pt.trace.json"
+    session.export_chrome_trace(os.path.join(profile_dir, name))
+
+
 def run_inference_phases(
     config: PipelineConfig,
     paths_index: PathIndex,
@@ -1313,18 +1349,24 @@ def run_inference_phases(
             results.append(ClusterResult(rank + 1, estimates))
         # The rank keys each cluster's random streams (-n, --use-hap-gibbs).
         seeded = (config.rng_seed, batch_ranks)
-        if supports_batched_nested(estimator) and estimator.infer_collapsed:
-            inference = batched_haplotype_transcripts(estimator, batch_data, device, *seeded)
-        elif supports_batched_nested(estimator):
-            inference = batched_haplotype_transcripts_independent(
-                estimator, batch_data, device, *seeded
-            )
-        elif supports_batched_strains(estimator):
-            inference = batched_strains(estimator, batch_data, device, *seeded)
-        elif supports_batched_transcripts(estimator):
-            inference = batched_transcripts(estimator, batch_data, device, *seeded)
-        else:
-            inference = batched_haplotypes(estimator, batch_data, device, *seeded)
+        profile = _start_profile(device)
+        try:
+            if supports_batched_nested(estimator) and estimator.infer_collapsed:
+                inference = batched_haplotype_transcripts(estimator, batch_data, device, *seeded)
+            elif supports_batched_nested(estimator):
+                inference = batched_haplotype_transcripts_independent(
+                    estimator, batch_data, device, *seeded
+                )
+            elif supports_batched_strains(estimator):
+                inference = batched_strains(estimator, batch_data, device, *seeded)
+            elif supports_batched_transcripts(estimator):
+                inference = batched_transcripts(estimator, batch_data, device, *seeded)
+            else:
+                inference = batched_haplotypes(estimator, batch_data, device, *seeded)
+        finally:
+            # The trace is written even when the dispatch raises.
+            if profile is not None:
+                _finish_profile(profile)
 
         if prob_writer is not None and prob_texts is None:
             for _, (paths, cluster_probs) in cluster_data:

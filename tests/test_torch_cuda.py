@@ -718,6 +718,24 @@ def test_multiprocess_forks_before_cuda(cuda, tmp_path):
             assert a.read() == b.read()
 
 
+def test_profile_hook_traces_the_em_kernel(cuda, tmp_path, monkeypatch):
+    """``RPVG_TPU_TORCH_PROFILE`` on cuda: one Chrome trace of the batched
+    dispatch, whose device events name the ragged EM kernel (A1)."""
+    import glob
+    import json
+
+    from rpvg_tpu_torch import cli
+
+    files = _gene_panel_files(tmp_path)
+    monkeypatch.setenv("RPVG_TPU_TORCH_PROFILE", str(tmp_path / "traces"))
+    assert cli.main(_nested_argv(files, str(tmp_path / "out"), "cuda")) == 0
+    (trace,) = glob.glob(str(tmp_path / "traces" / "*.pt.trace.json"))
+    with open(trace) as handle:
+        events = json.load(handle)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("warp_team_kernel" in n or "block_team_kernel" in n for n in kernels), kernels
+
+
 @pytest.fixture
 def one_thread():
     """One intra-op torch thread, as the port's CPU test files pin it."""

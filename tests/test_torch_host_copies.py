@@ -27,7 +27,7 @@ COPIED_MODULES = [
     "io/gbwt_file", "graph", "fragments", "pathindex", "projection",
     "probabilities", "native", "clustering", "infer/mincover",
     "infer/estimates", "infer/matrices", "io/info", "io/json_stream", "io/rpa",
-    "io/writers", "sim",
+    "io/writers", "sim", "tools",
 ]
 
 # (original lines, the port's lines): the only differences of native.py.

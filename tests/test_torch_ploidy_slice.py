@@ -1,4 +1,4 @@
-"""``haplotypes`` and ``haplotype-transcripts`` at ploidy 1 and 3 through
+"""``haplotypes`` and ``haplotype-transcripts`` at ploidy 1, 3 and 4 through
 the port's CLI on the CPU, against in-process ``rpvg_tpu`` runs:
 outputs within rtol 1e-6 / atol 1e-6 with identical rows
 (``compare.py``, the reference's tolerance); ``--use-hap-gibbs`` at
@@ -76,8 +76,10 @@ def _reference(files, model, ploidy, prefix, seed=SEED, **fields):
 
 @pytest.mark.parametrize(
     "model,ploidy",
-    [("haplotypes", 3), ("haplotypes", 1), ("haplotype-transcripts", 3)],
-    ids=["haplotypes-y3", "haplotypes-y1", "haplotype-transcripts-y3"],
+    [("haplotypes", 3), ("haplotypes", 1), ("haplotype-transcripts", 3), ("haplotypes", 4),
+     ("haplotype-transcripts", 4)],
+    ids=["haplotypes-y3", "haplotypes-y1", "haplotype-transcripts-y3", "haplotypes-y4",
+         "haplotype-transcripts-y4"],
 )
 def test_cli_matches_reference_pipeline(model, ploidy, panel_files, tmp_path):
     prefix, ref_prefix = str(tmp_path / "port"), str(tmp_path / "ref")

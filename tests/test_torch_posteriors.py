@@ -74,9 +74,9 @@ SHAPES = [(1, 1), (2, 3), (5, 4), (9, 6), (17, 7), (40, 12), (70, 9), (3, 2), (1
 
 @pytest.mark.parametrize("native_em", ["1", "0"])
 def test_diploid_posteriors_match_reference(native_em, monkeypatch):
-    """Reference on its default native route ("1") and on its XLA route
-    ("0"); the port scores with torch either way (selection goes native
-    or Python with the reference)."""
+    """Reference and port on their native routes ("1": the C++ library
+    scores, selects and normalises) and on their plain ones ("0": XLA
+    and torch scores, Python selection)."""
     monkeypatch.setenv("RPVG_TPU_NATIVE_EM", native_em)
     clusters = _clusters(3, SHAPES)
     ref = ref_post.diploid_posteriors_batched(clusters, 1e-3)

@@ -214,7 +214,7 @@ VERBATIM = [
     (port_posteriors, ref_posteriors, name)
     for name in (
         "_normalize_log_posteriors", "_pair_tensor_limit", "_ceil_pow2",
-        "_ceil_pow4", "_diploid_select", "_native_diploid_select",
+        "_ceil_pow4", "_diploid_select", "_native_diploid_select", "_diploid_posteriors_native",
         "gibbs_iteration_counts", "_native_pair_scores", "_posterior_gibbs_native",
         "_log_permutations_rows",
     )

@@ -54,14 +54,13 @@ from __future__ import annotations
 
 import math
 import os
-import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from rpvg_tpu_torch import prng
+from rpvg_tpu_torch import prng, spans
 from rpvg_tpu_torch.constants import HAPLOTYPES_MIN_REL_LIKELIHOOD
 from rpvg_tpu_torch.infer.matrices import (
     add_noise_and_normalize,
@@ -164,37 +163,46 @@ def _fallback_since(before: Dict[str, float]) -> Dict:
 
 
 class _PhaseClock:
-    """Host-clock phase times; on CUDA each boundary waits for every data
-    shard's device so a phase is charged all of its device work.  Also
-    keeps, per phase with device dispatches, the tasks or clusters each
-    shard took (``autoshard.take_shard_work``)."""
+    """Host-clock phase times, each phase a span ``rpvg.phase.<key>``
+    (:mod:`rpvg_tpu_torch.spans`); on CUDA each boundary waits for every
+    data shard's device so a phase is charged all of its device work.
+    Also keeps, per phase with device dispatches, the tasks or clusters
+    each shard took (``autoshard.take_shard_work``)."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.seconds: Dict[str, float] = {}
         self.shard_work: Dict[str, List[int]] = {}
-        self.verbose = bool(os.environ.get("RPVG_TPU_PHASE_TIMING"))
         autoshard.take_shard_work()
-        self.t0 = time.perf_counter()
+        # A phase is named by the lap that ends it: a profiler session
+        # sees it as ``rpvg.phase``.
+        self.phase = spans.begin("rpvg.phase")
 
     def lap(self, key: str, label: str, sync: bool = True) -> None:
         """Charge the time since the last lap to ``key`` (added to what
         it has).  ``sync=False`` leaves the device's queued work running,
-        for a lap between a dispatch and the gather that waits for it."""
+        for a lap between a dispatch and the gather that waits for it.
+        ``label`` says what the phase did."""
         if sync:
             synchronize(self.device)
-        now = time.perf_counter()
-        self.seconds[key] = self.seconds.get(key, 0.0) + now - self.t0
+        now = spans.clock()
+        seconds = self.phase.close(now, f"rpvg.phase.{key}")
+        self.seconds[key] = self.seconds.get(key, 0.0) + seconds
         work = autoshard.take_shard_work()
         if work:
             self.shard_work[key] = work
-        if self.verbose:
-            print(f"  [timing]   {key} {label}: {now - self.t0:.2f}s", file=sys.stderr)
-        self.t0 = now
+        self.phase = spans.begin("rpvg.phase", start=now)
+
+    def discard(self) -> None:
+        """End the clock with no further phase (a route's last lap is
+        behind it, or it hands over to another route)."""
+        self.phase.discard()
 
     def report(self) -> Dict:
         """``phase_seconds``; ``data_shards``, the shard count of the
-        run's device; ``shard_work``, per phase the items each shard took."""
+        run's device; ``shard_work``, per phase the items each shard took.
+        Ends the clock."""
+        self.discard()
         return {
             "phase_seconds": self.seconds,
             "data_shards": autoshard.num_data_shards(self.device),
@@ -254,9 +262,10 @@ def batched_haplotype_transcripts(
         source_counts_of.append(source_counts)
         meta.append((ci, source_groups))
 
-    multi = native_subset_collapse_multi(
-        dense_clusters, group_jobs, estimator.prob_precision
-    )
+    with spans.Span("rpvg.subset_matrices"):
+        multi = native_subset_collapse_multi(
+            dense_clusters, group_jobs, estimator.prob_precision
+        )
     inputs = []
     if multi is not None:
         for (full, counts), source_counts in zip(multi, source_counts_of):
@@ -337,9 +346,10 @@ def batched_haplotype_transcripts(
         cluster_tasks[ci] = tasks
         all_tasks.extend((ci, task) for task in tasks)
 
-    multi = native_subset_collapse_multi(
-        dense_clusters, subset_jobs, estimator.prob_precision
-    )
+    with spans.Span("rpvg.subset_matrices"):
+        multi = native_subset_collapse_multi(
+            dense_clusters, subset_jobs, estimator.prob_precision
+        )
     if multi is not None:
         for (_, task), (sub_full, sub_counts) in zip(all_tasks, multi):
             task["matrix"] = sub_full
@@ -505,6 +515,7 @@ def _batched_haplotype_transcripts_fused(
         # EM goes in flight while pass 2 runs the host share.
         dev_streams = native_call(device_pos, 1)
         if dev_streams is None:
+            clock.discard()
             return None
         dev_inputs = _section_task_matrices(dev_streams, emit_matrices)
         t0 = time.perf_counter()
@@ -519,6 +530,7 @@ def _batched_haplotype_transcripts_fused(
         )
         host_streams = native_call(host_pos, 0)
         if host_streams is None:
+            clock.discard()
             return None
         sections.append(([meta[i] for i in host_pos], host_streams, None))
         sections.append(
@@ -528,6 +540,7 @@ def _batched_haplotype_transcripts_fused(
     else:
         streams = native_call(range(len(meta)), em_area_cutoff, em_bound)
         if streams is None:
+            clock.discard()
             return None
         sections.append((meta, streams, None))
     clock.lap("native", "fused native pass", sync=False)
@@ -1097,7 +1110,8 @@ def batched_haplotype_transcripts_independent(
             group_counts_of.append([est.paths[i].source_count for i in group])
             jobs.append((ci, gi, group))
 
-    multi = native_subset_collapse_multi(dense_clusters, group_jobs, estimator.prob_precision)
+    with spans.Span("rpvg.subset_matrices"):
+        multi = native_subset_collapse_multi(dense_clusters, group_jobs, estimator.prob_precision)
     if multi is not None:
         inputs = [
             (full[:, :-1], full[:, -1], counts, gc)
@@ -1144,7 +1158,10 @@ def batched_haplotype_transcripts_independent(
         flat[0::2] = 1
         flat[1::2] = collapsed
         fill_jobs.append((slot_of_ci[ci], (flat, len(collapsed))))
-    multi_fill = native_subset_collapse_multi(dense_clusters, fill_jobs, estimator.prob_precision)
+    with spans.Span("rpvg.subset_matrices"):
+        multi_fill = native_subset_collapse_multi(
+            dense_clusters, fill_jobs, estimator.prob_precision
+        )
     if multi_fill is not None:
         for (_, task), (sub_full, sub_counts) in zip(all_tasks, multi_fill):
             task["matrix"] = sub_full
@@ -1558,6 +1575,7 @@ def _batched_strains_fused(
         emit_matrices=emit,
     )
     if streams is None:
+        clock.discard()
         return None
     clock.lap("native", "fused native pass")
 

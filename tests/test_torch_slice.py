@@ -186,7 +186,7 @@ VERBATIM = [
         "build_cluster_matrices_columnar", "build_cluster_probs",
         "_collapse_cluster_paths", "_is_gbwt_container", "load_inputs",
         "resolve_pre_fragment_dist", "iter_fragments", "build_finder",
-        "collect_fragments", "submit_info_parse", "PipelineInputError",
+        "submit_info_parse", "PipelineInputError",
         "_remove_partial_outputs", "compute_tpm_normalizer",
         "_write_hapjoint_columnar", "_gather_path_row_meta",
         "_write_abundance_columnar", "write_outputs",
@@ -266,6 +266,40 @@ def test_device_only_rewrite_has_not_drifted():
     )
     assert port_src.count("device") == 3  # the parameter, its type, the call
     stripped = port_src.replace(", device: torch.device", "").replace(", device,", ",")
+    assert stripped == ref_src
+
+
+def _strip_spans(source: str) -> str:
+    """``source`` without its span lines: each ``with spans.`` line goes
+    and its block moves out one level; every other line naming ``spans.``
+    goes, with the blank line it leaves."""
+    kept, blocks = [], []
+    for line in source.splitlines(keepends=True):
+        indent = len(line) - len(line.lstrip())
+        while blocks and line.strip() and indent <= blocks[-1]:
+            blocks.pop()
+        if "spans." in line:
+            if line.lstrip().startswith("with spans."):
+                blocks.append(indent)
+            continue
+        kept.append(line[4 * len(blocks):] if line.strip() else line)
+    return re.sub(r"\n\n\n+", "\n\n", "".join(kept))
+
+
+def test_spanned_rewrite_has_not_drifted():
+    """``collect_fragments`` is the JAX package's but for its spans and
+    counters (the reader thread's blocks go through ``spans.each``)."""
+    port_src = _absolute_imports(
+        inspect.getsource(port_pipeline.collect_fragments), port_pipeline.__name__
+    )
+    ref_src = _absolute_imports(
+        inspect.getsource(ref_pipeline.collect_fragments), ref_pipeline.__name__
+    )
+    assert "\n\n\n" not in ref_src
+    for span in ("read", "wait", "project", "dump"):
+        assert port_src.count(f'"rpvg.fragments.{span}"') == 1
+    assert port_src.count("enumerate(blocks)") == 1
+    stripped = _strip_spans(port_src.replace("enumerate(blocks)", "enumerate(reader.blocks())"))
     assert stripped == ref_src
 
 

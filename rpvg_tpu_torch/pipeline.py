@@ -22,6 +22,8 @@ multi-process entry points are in :mod:`rpvg_tpu_torch.parallel.multihost`.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import itertools
 import math
 import os
@@ -1038,57 +1040,101 @@ class PipelineInputError(RuntimeError):
 # ------------------------------------------------------------ entry points
 
 
+@contextlib.contextmanager
+def _collector_held():
+    """Automatic collections of the cyclic collector held for the block,
+    and one collection of the young generations at its end (span
+    ``rpvg.gc``, counter ``gc.collected``).  With the collector off,
+    nothing the block allocates leaves generation 0, so that collection
+    walks what the block made and still holds, and the caller's young
+    objects, never the long-lived state: it frees the block's cycles and
+    the caller's young ones.  Older garbage waits, as it would without
+    the hold, for a full collection that the collector schedules itself
+    between blocks.  A caller that disabled the collector (a pass inside
+    a pass, one on another thread) keeps its own arrangement."""
+    if not gc.isenabled():
+        yield
+        return
+    # A full collection walks every tracked object the process holds
+    # (the modules, the resident panel, the kernels: ~186,000 on a
+    # benchmark pass), and a pass's allocations trip three of them only
+    # to find the few hundred cyclic objects it made.
+    gc.disable()
+    try:
+        yield
+    finally:
+        # Collected while the collector is still off: once on, it counts
+        # the pass's allocations and would run a collection of its own at
+        # the next one, leaving this one nothing to find.
+        try:
+            with spans.Span("rpvg.gc"):
+                spans.count("gc.collected", gc.collect(1))
+        finally:
+            gc.enable()
+
+
 def run_pipeline(config: PipelineConfig, device: torch.device) -> Dict:
     """Run the full pipeline with the device half on ``device``;
     returns summary stats, among them the seconds of the fragment pass,
     the matrix build, inference phases A-E (``phase_seconds``), the
-    outputs and the whole run (``wall_seconds``), and the run's spans
-    and counters (``spans``, ``counters``: :mod:`rpvg_tpu_torch.spans`)."""
+    outputs and the whole run (``wall_seconds``, which includes the one
+    collection of the pass's own garbage: :func:`_collector_held`), and
+    the run's spans and counters (``spans``, ``counters``:
+    :mod:`rpvg_tpu_torch.spans`)."""
+    with spans.RunSpan("rpvg.pass") as whole:
+        with _collector_held():
+            stats = _run_pass(config, device, whole)
+    stats["wall_seconds"] = whole.seconds
+    stats.update(whole.run.summary())
+    return stats
+
+
+def _run_pass(config: PipelineConfig, device: torch.device, whole: spans.RunSpan) -> Dict:
+    """The body of :func:`run_pipeline`, a frame of its own so that what
+    it holds (the info parse, the finder, the fragment index) is freed
+    before the end's collection walks what is left."""
     log = lambda msg: print(msg, file=sys.stderr)  # noqa: E731
 
     from rpvg_tpu_torch.native import set_thread_budget
 
-    with spans.RunSpan("rpvg.pass") as whole:
-        set_thread_budget(config.threads)
+    set_thread_budget(config.threads)
 
-        with spans.Span("rpvg.load"):
-            graph, paths_index = load_inputs(config)
-        pre_frag_length_dist = resolve_pre_fragment_dist(config)
-        # Phase-line parity with the reference (src/main.cpp:640-649).
-        loaded_what = (
-            "graph, GBWT and r-index"
-            if getattr(paths_index, "has_r_index", False)
-            else "graph and path index"
+    with spans.Span("rpvg.load"):
+        graph, paths_index = load_inputs(config)
+    pre_frag_length_dist = resolve_pre_fragment_dist(config)
+    # Phase-line parity with the reference (src/main.cpp:640-649).
+    loaded_what = (
+        "graph, GBWT and r-index"
+        if getattr(paths_index, "has_r_index", False)
+        else "graph and path index"
+    )
+    log(f"Loaded {loaded_what} ({whole.elapsed():.2f}s, {_mem_gb():.2f}GB)")
+
+    with spans.Span("rpvg.finder"):
+        finder = build_finder(config, paths_index, pre_frag_length_dist)
+
+    info_future = submit_info_parse(config)
+
+    with spans.Span("rpvg.fragments") as fragments:
+        fragment_index = collect_fragments(
+            config, finder, pre_frag_length_dist, columnar=True
         )
-        log(f"Loaded {loaded_what} ({whole.elapsed():.2f}s, {_mem_gb():.2f}GB)")
+    num_entries = (
+        fragment_index.num_entries()
+        if isinstance(fragment_index, ColumnarFragmentIndex)
+        else len(fragment_index.entries)
+    )
+    log(
+        f"Found {num_entries} distinct alignment path lists and "
+        f"{fragment_index.unaligned_count} unaligned reads "
+        f"({fragments.seconds:.2f}s, {_mem_gb():.2f}GB)"
+    )
 
-        with spans.Span("rpvg.finder"):
-            finder = build_finder(config, paths_index, pre_frag_length_dist)
-
-        info_future = submit_info_parse(config)
-
-        with spans.Span("rpvg.fragments") as fragments:
-            fragment_index = collect_fragments(
-                config, finder, pre_frag_length_dist, columnar=True
-            )
-        num_entries = (
-            fragment_index.num_entries()
-            if isinstance(fragment_index, ColumnarFragmentIndex)
-            else len(fragment_index.entries)
-        )
-        log(
-            f"Found {num_entries} distinct alignment path lists and "
-            f"{fragment_index.unaligned_count} unaligned reads "
-            f"({fragments.seconds:.2f}s, {_mem_gb():.2f}GB)"
-        )
-
-        stats = run_inference_phases(
-            config, paths_index, fragment_index, pre_frag_length_dist, device, log,
-            finder=finder, info_future=info_future,
-        )
+    stats = run_inference_phases(
+        config, paths_index, fragment_index, pre_frag_length_dist, device, log,
+        finder=finder, info_future=info_future,
+    )
     stats["fragment_pass_seconds"] = fragments.seconds
-    stats["wall_seconds"] = whole.seconds
-    stats.update(whole.run.summary())
     return stats
 
 

@@ -31,7 +31,7 @@ PASS_SPANS = (
     "rpvg.fragments.wait", "rpvg.fragments.project", "rpvg.fragments.dump",
     "rpvg.inference", "rpvg.refit", "rpvg.clusters", "rpvg.info_wait", "rpvg.matrices",
     "rpvg.subset_matrices", "rpvg.results", "rpvg.outputs", "rpvg.publish",
-    "rpvg.phase.A", "rpvg.phase.B", "rpvg.phase.C", "rpvg.phase.D", "rpvg.phase.E",
+    "rpvg.phase.A", "rpvg.phase.B", "rpvg.phase.C", "rpvg.phase.D", "rpvg.phase.E", "rpvg.gc",
 )
 
 
@@ -280,6 +280,7 @@ def test_spans_nest_in_a_profiler_trace(small_rpa, staged, tmp_path):
         ("rpvg.matrices", "rpvg.inference"), ("rpvg.results", "rpvg.inference"),
         ("rpvg.phase", "rpvg.inference"), ("rpvg.subset_matrices", "rpvg.phase"),
         ("rpvg.outputs", "rpvg.inference"), ("rpvg.publish", "rpvg.inference"),
+        ("rpvg.gc", "rpvg.pass"),
     ]:
         for event in by_name[child]:
             assert parent_of(event) == parent, (child, parent)

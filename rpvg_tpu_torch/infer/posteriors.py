@@ -37,6 +37,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from rpvg_tpu_torch import spans
 from rpvg_tpu_torch.constants import (
     BURN_ITS_SCALING,
     GIBBS_CHAIN_SCALING,
@@ -589,6 +590,19 @@ def full_posteriors_batched(cluster_inputs, group_size: int, device: torch.devic
     ``_FULL_ENUM_GROUP_LIMIT`` runs :func:`path_group_posteriors_full` on
     the host instead (counted in ``HOST_ENUMERATION``).
 
+    Spans (:mod:`rpvg_tpu_torch.spans`), each entered once a call:
+    ``rpvg.groups.host_enum`` (the limit's check, and the host engine's
+    clusters), ``rpvg.groups.pack`` (the clusters packed and launched),
+    ``rpvg.groups.wait`` (the scores read back: the call's one wait for
+    the device) and ``rpvg.groups.finish`` (prior, permutations and
+    normalisation per cluster); the last three only when a cluster is
+    scored.  Counters, added once a call, of the clusters the scorer
+    takes, with G = comb(P + k - 1, k) groups of a cluster of R rows
+    over P paths: ``groups.clusters``, ``groups.groups`` (sum of G),
+    ``groups.rows`` (R), ``groups.cells`` (R P), ``groups.row_groups``
+    (R G), ``groups.slots`` (k G, the paths all groups name); and
+    ``groups.host_enum_clusters``, the clusters of the host engine.
+
     cluster_inputs: per cluster (probs (R, P), noise (R,), counts (R,),
     path_counts).  Returns per cluster (groups, posteriors)."""
     from rpvg_tpu_torch.ops import group_scores_cuda
@@ -596,49 +610,64 @@ def full_posteriors_batched(cluster_inputs, group_size: int, device: torch.devic
     results = [None] * len(cluster_inputs)
     scored = []
     t0 = time.perf_counter()
-    for ci, (probs, noise, counts, path_counts) in enumerate(cluster_inputs):
-        P_pad = _ceil_pow2(probs.shape[1])
-        if math.comb(P_pad + group_size - 1, group_size) > _FULL_ENUM_GROUP_LIMIT:
-            results[ci] = path_group_posteriors_full(probs, noise, counts, path_counts, group_size)
-            HOST_ENUMERATION["clusters"] += 1
-            _count_scored(torch.device("cpu"), 1)
-        else:
-            scored.append(ci)
+    with spans.Span("rpvg.groups.host_enum"):
+        for ci, (probs, noise, counts, path_counts) in enumerate(cluster_inputs):
+            P_pad = _ceil_pow2(probs.shape[1])
+            if math.comb(P_pad + group_size - 1, group_size) > _FULL_ENUM_GROUP_LIMIT:
+                results[ci] = path_group_posteriors_full(
+                    probs, noise, counts, path_counts, group_size
+                )
+                HOST_ENUMERATION["clusters"] += 1
+                _count_scored(torch.device("cpu"), 1)
+            else:
+                scored.append(ci)
     HOST_ENUMERATION["seconds"] += time.perf_counter() - t0
+    shapes = [cluster_inputs[ci][0].shape for ci in scored]
+    work = [(R, math.comb(P + group_size - 1, group_size)) for R, P in shapes]
+    for name, n in (
+        ("groups.clusters", len(scored)),
+        ("groups.groups", sum(G for _, G in work)),
+        ("groups.rows", sum(R for R, _ in work)),
+        ("groups.cells", sum(R * P for R, P in shapes)),
+        ("groups.row_groups", sum(R * G for R, G in work)),
+        ("groups.slots", group_size * sum(G for _, G in work)),
+        ("groups.host_enum_clusters", len(cluster_inputs) - len(scored)),
+    ):
+        spans.count(name, n)
     if not scored:
         return results
 
     # Contiguous ranges of the scored clusters per data shard, balanced by
     # rows times groups; every shard launched before any is read.
-    devices = autoshard.data_devices(device)
-    work = [
-        (cluster_inputs[ci][0].shape[0],
-         math.comb(cluster_inputs[ci][0].shape[1] + group_size - 1, group_size))
-        for ci in scored
-    ]
-    ranges = autoshard.shard_tasks(work, len(devices))
-    launched = []
-    for (lo, hi), shard_device in zip(ranges, devices):
-        if hi > lo:
-            clusters = group_scores_cuda.make_clusters(
-                [cluster_inputs[ci][:3] for ci in scored[lo:hi]], group_size, shard_device
-            )
-            launched.append((scored[lo:hi], clusters, group_scores_cuda.group_scores(clusters)))
-            _count_scored(shard_device, hi - lo)
-    autoshard.record([hi - lo for lo, hi in ranges])
-    for members, clusters, scores in launched:
-        scores = scores.cpu().numpy()
-        out_offsets = clusters.host["out_offsets"]
-        for b, ci in enumerate(members):
-            probs, _, _, path_counts = cluster_inputs[ci]
-            groups = group_scores_cuda.group_table(probs.shape[1], group_size)
-            log_freqs = calc_path_log_frequencies(path_counts)
-            ll = (
-                scores[out_offsets[b] : out_offsets[b + 1]]
-                + log_freqs[groups].sum(axis=1)
-                + _log_permutations_rows(groups)
-            )
-            results[ci] = (groups.tolist(), _normalize_log_posteriors(ll))
+    with spans.Span("rpvg.groups.pack"):
+        devices = autoshard.data_devices(device)
+        ranges = autoshard.shard_tasks(work, len(devices))
+        launched = []
+        for (lo, hi), shard_device in zip(ranges, devices):
+            if hi > lo:
+                clusters = group_scores_cuda.make_clusters(
+                    [cluster_inputs[ci][:3] for ci in scored[lo:hi]], group_size, shard_device
+                )
+                launched.append(
+                    (scored[lo:hi], clusters, group_scores_cuda.group_scores(clusters))
+                )
+                _count_scored(shard_device, hi - lo)
+        autoshard.record([hi - lo for lo, hi in ranges])
+    with spans.Span("rpvg.groups.wait"):
+        read_back = [scores.cpu().numpy() for _, _, scores in launched]
+    with spans.Span("rpvg.groups.finish"):
+        for (members, clusters, _), scores in zip(launched, read_back):
+            out_offsets = clusters.host["out_offsets"]
+            for b, ci in enumerate(members):
+                probs, _, _, path_counts = cluster_inputs[ci]
+                groups = group_scores_cuda.group_table(probs.shape[1], group_size)
+                log_freqs = calc_path_log_frequencies(path_counts)
+                ll = (
+                    scores[out_offsets[b] : out_offsets[b + 1]]
+                    + log_freqs[groups].sum(axis=1)
+                    + _log_permutations_rows(groups)
+                )
+                results[ci] = (groups.tolist(), _normalize_log_posteriors(ll))
     return results
 
 

@@ -15,7 +15,9 @@ with read-count Gibbs sampling (``-n``):
 * D (device): one EM run over every (cluster, subset) task;
 * D2 (device): read-count Gibbs sampling of the subsets that the host
   allocates samples to, on the task matrices phase D packed;
-* E (host): posterior-weighted combination per cluster.
+* E (host): posterior-weighted combination per cluster, one threaded
+  native call (``rpvg_nested_combine``) that leaves the set streams for
+  the native output composer.
 
 With independent transcript groups (``--ind-hap-inference``),
 ``batched_haplotype_transcripts_independent`` replaces A-C by I1 (one
@@ -44,10 +46,11 @@ bounded-EM escalation, slot routing, task deferral) and
 its EM, :func:`_batched_strains_fused`); the read-count Gibbs jobs of
 both run on the device.  Unset, the port takes the staged device routes
 (the JAX package's default is the fused ones; the port's default waits
-for its benchmark).  Both fused routes and the staged ``transcripts``
-and ``strains`` routes leave columnar streams in
-``estimator._columnar_outputs`` for the native output composer
-(``pipeline.write_outputs``).
+for its benchmark).  Every route but ``haplotypes`` leaves columnar
+streams in ``estimator._columnar_outputs`` for the native output
+composer (``pipeline.write_outputs``); the staged nested routes only
+with the native library (else their phase E combines in Python and
+leaves None).
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from __future__ import annotations
 import math
 import os
 import time
+from itertools import chain
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -228,8 +232,8 @@ def batched_haplotype_transcripts(
     (:func:`_batched_haplotype_transcripts_fused`)."""
     if not (supports_batched_nested(estimator) and estimator.infer_collapsed):
         raise NotImplementedError("collapsed groups only (not --ind-hap-inference)")
-    # The staged route leaves the estimates to the object writers; the
-    # fused route stashes its set streams for the native output composer.
+    # Both routes stash their set streams for the native output composer
+    # (the staged route's phase E only with the native library).
     estimator._columnar_outputs = None
     if (
         estimator.group_size == 2
@@ -1084,6 +1088,7 @@ def batched_haplotype_transcripts_independent(
     clusters and seconds, ``em_tasks`` and ``gibbs_jobs``."""
     if not (supports_batched_nested(estimator) and not estimator.infer_collapsed):
         raise NotImplementedError("independent groups only (--ind-hap-inference)")
+    estimator._columnar_outputs = None
     clock = _PhaseClock(device)
     rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
 
@@ -1196,8 +1201,10 @@ def _nested_em_and_gibbs(
     (``_nested_em_and_gibbs`` of the JAX package, ``batched_models.py:
     1318-1451``): one EM run over every (cluster, subset) task, the
     read-count Gibbs jobs (:func:`_nested_gibbs`) and the
-    posterior-weighted combination per cluster, each lapped on
-    ``clock``.  Returns the number of Gibbs jobs."""
+    posterior-weighted combination per cluster
+    (:func:`_native_combine_clusters`, or ``combine_subset_tasks`` per
+    cluster without the native library), each lapped on ``clock``.
+    Returns the number of Gibbs jobs."""
     em_inputs = [(task["matrix"], task["counts"]) for _, task in all_tasks]
     em_results, packed = run_batched_em_packed(
         em_inputs, estimator.max_em_its, estimator.max_rel_em_conv, device
@@ -1217,11 +1224,93 @@ def _nested_em_and_gibbs(
         )
         clock.lap(PHASES[4][0], f"{PHASES[4][1]} ({gibbs_jobs} jobs)")
 
-    for ci, tasks in cluster_tasks.items():
-        est = cluster_data[ci][0]
-        estimator.combine_subset_tasks(est, tasks, per_cluster.get(ci, []))
+    columnar = _native_combine_clusters(cluster_data, cluster_tasks, per_cluster)
+    if columnar is None:
+        for ci, tasks in cluster_tasks.items():
+            est = cluster_data[ci][0]
+            estimator.combine_subset_tasks(est, tasks, per_cluster.get(ci, []))
+    estimator._columnar_outputs = columnar
     clock.lap(*PHASES[5])
     return gibbs_jobs
+
+
+def _native_combine_clusters(cluster_data, cluster_tasks, per_cluster) -> Optional[Dict]:
+    """Phase E of the staged nested routes in one threaded native call
+    (``rpvg_nested_combine``, the fused route's combine tail): per
+    cluster of ``cluster_tasks`` (ascending cluster-data order) each
+    task's EM read counts, times its subset probability over the path's
+    multiplicity, fold into the sets split by transcript group in
+    first-seen order, and the noise count accumulates in task order; the
+    arithmetic of ``combine_subset_tasks``, bit for bit.  Each estimate
+    gets zero-copy views over the set streams and its noise count.
+    Returns the streams as ``_merge_nested_columnar`` leaves them (every
+    slot combined), or None, touching nothing, without the library or
+    its symbol."""
+    from rpvg_tpu_torch.infer.estimates import GroupSetViews
+    from rpvg_tpu_torch.native import nested_combine
+
+    meta = sorted(cluster_tasks)
+    if not meta:
+        return None
+    tasks = [task for ci in meta for task in cluster_tasks[ci]]
+    em = [result for ci in meta for result in per_cluster.get(ci, [])]
+    n_tasks = np.fromiter((len(cluster_tasks[ci]) for ci in meta), np.int64, len(meta))
+    n_col = np.fromiter((len(task["collapsed"]) for task in tasks), np.int64, len(tasks))
+    col_offsets = np.zeros(len(tasks) + 1, dtype=np.int64)
+    np.cumsum(n_col, out=col_offsets[1:])
+    n_cols = int(col_offsets[-1])
+    estimates = [cluster_data[ci][0] for ci in meta]
+    out = nested_combine(
+        [
+            np.fromiter((info.group_id for info in est.paths), np.int64, len(est.paths))
+            for est in estimates
+        ],
+        np.fromiter((est.total_count for est in estimates), np.float64, len(meta)),
+        n_tasks,
+        np.fromiter((task["subset_prob"] for task in tasks), np.float64, len(tasks)),
+        n_col,
+        np.fromiter(
+            chain.from_iterable(task["collapsed"] for task in tasks), np.int64, n_cols
+        ),
+        np.fromiter(
+            chain.from_iterable(
+                map(task["multiplicity"].__getitem__, task["collapsed"]) for task in tasks
+            ),
+            np.int64,
+            n_cols,
+        ),
+        col_offsets,
+        np.concatenate([np.asarray(counts, dtype=np.float64) for counts, _ in em])
+        if em else np.empty(0, dtype=np.float64),
+        np.fromiter((noise for _, noise in em), np.float64, len(em)),
+    )
+    if out is None:
+        return None
+    n_sets, noise, set_lens, set_ids, set_posteriors, set_abundances = out
+    set_bounds = np.zeros(len(meta) + 1, dtype=np.int64)
+    np.cumsum(n_sets, out=set_bounds[1:])
+    len_bounds = np.zeros(set_lens.size + 1, dtype=np.int64)
+    np.cumsum(set_lens, out=len_bounds[1:])
+    id_bounds = len_bounds[set_bounds].tolist()
+    set_bounds = set_bounds.tolist()
+    for k, (est, noise_count) in enumerate(zip(estimates, noise.tolist())):
+        lo, hi = set_bounds[k], set_bounds[k + 1]
+        est.path_group_sets = GroupSetViews(set_ids, len_bounds, lo, hi)
+        est.posteriors = set_posteriors[lo:hi]
+        est.abundances = set_abundances[id_bounds[k] : id_bounds[k + 1]]
+        est.noise_count = noise_count
+    spans.count("combine.native_slots", len(meta))
+    spans.count("combine.sets", int(set_lens.size))
+    return {
+        "kind": "sets",
+        "meta": meta,
+        "combined": np.ones(len(meta), dtype=bool),
+        "n_sets": n_sets,
+        "set_lens": set_lens,
+        "set_ids": set_ids,
+        "set_posteriors": set_posteriors,
+        "set_abundances": set_abundances,
+    }
 
 
 def _nested_gibbs(

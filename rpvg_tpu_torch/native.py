@@ -1433,6 +1433,9 @@ def compose_hapjoint_rows(
         joint_text = ctypes.string_at(out_joint, out_joint_len.value).decode()
     finally:
         lib.rpvg_buffer_free(out_joint)
+    from rpvg_tpu_torch import spans
+
+    spans.count("outputs.composed_rows", hap_text.count("\n") + joint_text.count("\n"))
     return hap_text, joint_text
 
 

@@ -201,7 +201,9 @@ def test_fused_nested_gibbs_matches_reference(monkeypatch):
 def test_unset_switch_keeps_the_staged_route():
     port, stats, estimator = run_port_nested(13, 25)
     assert "route" not in stats and "D" in stats["phase_seconds"]
-    assert estimator._columnar_outputs is None
+    # The staged route's phase E leaves its set streams for the composer.
+    assert estimator._columnar_outputs["kind"] == "sets"
+    assert estimator._columnar_outputs["combined"].all()
 
 
 # (leg, its switches, the counter that shows it ran)

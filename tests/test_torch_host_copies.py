@@ -8,7 +8,8 @@ up here until the other carries it too, with two named exceptions:
   (``reference/src/...``; ``relative_reference_paths``);
 * ``native.py`` differs in the lines named by ``NATIVE_EDITS``: the port
   builds its own copy of the C++ source into its own build directory,
-  through a temporary file.
+  through a temporary file, and counts the rows its output composer
+  writes (``outputs.composed_rows``, :mod:`rpvg_tpu_torch.spans`).
 
 No file of the port imports the JAX package."""
 
@@ -60,6 +61,15 @@ NATIVE_EDITS = [
         "        return False\n"
         "    os.replace(tmp, _LIB)\n"
         "    return True\n",
+    ),
+    (
+        "        lib.rpvg_buffer_free(out_joint)\n"
+        "    return hap_text, joint_text\n",
+        "        lib.rpvg_buffer_free(out_joint)\n"
+        "    from rpvg_tpu_torch import spans\n"
+        "\n"
+        '    spans.count("outputs.composed_rows", hap_text.count("\\n") + joint_text.count("\\n"))\n'
+        "    return hap_text, joint_text\n",
     ),
 ]
 

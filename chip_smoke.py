@@ -29,8 +29,8 @@ Phases (each prints at least one line; any failure exits non-zero):
    single reads), on small gene panels:
    identical rows, numbers within rtol 1e-6 / atol 1e-6;
 4. the main path at bench scale (haplotype-transcripts, 100k read pairs
-   over 1,286 genes x 7 isoforms x 4 haplotypes), with launch counters
-   reset just before and read just after; the tasks phase D hands to
+   over 1,286 genes x 7 isoforms x 4 haplotypes), with the run's counters
+   read just after; the tasks phase D hands to
    em_cuda.em_fixed_point are captured (the script wraps that entry) and
    the kernel is re-timed on them, held against its plain version, and
    their slowest task timed alone;
@@ -38,8 +38,8 @@ Phases (each prints at least one line; any failure exits non-zero):
    launch groups that dispatch_em_device plans for phase 2's task set,
    and against the ragged kernel (bitwise); its bound and slowest cluster;
 6. transcripts -f (ragged route, then RPVG_TPU_FUSE_EM=1), strains and
-   haplotypes on phase 4's dataset, each with the counters reset just
-   before and read just after;
+   haplotypes on phase 4's dataset, each with the run's counters
+   read just after;
 9. (run before 7 and 8) the Gibbs configurations at full width on phase
    4's dataset: haplotype-transcripts -f -n 100 (the read-count
    sampler's main path; the jobs its phase D2 hands
@@ -66,7 +66,7 @@ Phases (each prints at least one line; any failure exits non-zero):
    3 and 4 at full width on phase 4's dataset: haplotypes -y 3,
    haplotype-transcripts -f -y 3, haplotypes -y 3 --use-hap-gibbs and
    haplotype-transcripts -f -y 4,
-   each with the counters reset just before and read just after; what
+   each with the run's counters read just after; what
    the group scorer, the host enumeration engine and the k-slot sampler
    were handed is captured;
    per run wall, pairs/s, phases, peak memory, the histogram of P and the
@@ -89,8 +89,8 @@ Phases (each prints at least one line; any failure exits non-zero):
    slowest chain alone with its cycles per slot step and its
    dependent-chain floor;
 13. (run inside the dataset's directory, after 10) haplotype-transcripts
-   -f --ind-hap-inference on phase 4's dataset, with the counters reset
-   just before and read just after: wall, pairs/s, phases I1-I3 and C-E,
+   -f --ind-hap-inference on phase 4's dataset, with the run's counters
+   read just after: wall, pairs/s, phases I1-I3 and C-E,
    EM tasks, peak memory; the tasks its phase D hands
    em_cuda.em_fixed_point are captured, re-timed, held against the plain
    version and their slowest task timed alone, as in phase 4;
@@ -115,7 +115,7 @@ Phases (each prints at least one line; any failure exits non-zero):
    than one CUDA device, (a) and (e) on the real devices, else a line
    saying that only virtual shards ran;
 16. the JAX package's fused native routes on phase 4's dataset, each
-   run with the counters reset just before and read just after (every
+   run with the run's counters read just after (every
    task of a device leg in an EM kernel, every Gibbs job in the
    read-count kernel): (a) RPVG_TPU_FUSED_NESTED=1 at the port's
    defaults on cuda (the escalated tail on the ragged kernel, re-timed
@@ -154,6 +154,7 @@ The last two lines are a JSON line of kernel results and
 prints no result.
 """
 
+import collections
 import concurrent.futures
 import json
 import math
@@ -1784,48 +1785,11 @@ def output_suffixes(model):
     return (".txt", "_joint.txt") if model == "haplotype-transcripts" else (".txt",)
 
 
-def reset_counters():
-    from rpvg_tpu_torch.infer import posteriors
-    from rpvg_tpu_torch.ops import (
-        em_cuda, em_fused_cuda, gibbs_cuda, group_scores_cuda, posterior_gibbs_cuda,
-        posterior_gibbs_k_cuda,
-    )
-
-    em_cuda.LAUNCHES = em_cuda.TASKS = 0
-    em_fused_cuda.LAUNCHES = em_fused_cuda.TASKS = em_fused_cuda.BLOCKS = 0
-    gibbs_cuda.LAUNCHES = gibbs_cuda.JOBS = 0
-    posterior_gibbs_cuda.LAUNCHES = posterior_gibbs_cuda.CLUSTERS = 0
-    group_scores_cuda.LAUNCHES = group_scores_cuda.CLUSTERS = 0
-    posterior_gibbs_k_cuda.LAUNCHES = posterior_gibbs_k_cuda.CLUSTERS = 0
-    for key in posteriors.SCORED_CLUSTERS:
-        posteriors.SCORED_CLUSTERS[key] = 0
-    posteriors.HOST_ENUMERATION.update(clusters=0, seconds=0.0)
-    posteriors.SHARDED_PAIR_CLUSTERS = 0
-
-
 def read_counters():
-    from rpvg_tpu_torch.infer import posteriors
-    from rpvg_tpu_torch.ops import (
-        em_cuda, em_fused_cuda, gibbs_cuda, group_scores_cuda, posterior_gibbs_cuda,
-        posterior_gibbs_k_cuda,
-    )
+    """The last finished run's counters; one it never added to reads 0."""
+    from rpvg_tpu_torch import spans
 
-    return {
-        "ragged_launches": em_cuda.LAUNCHES, "ragged_tasks": em_cuda.TASKS,
-        "fused_launches": em_fused_cuda.LAUNCHES, "fused_tasks": em_fused_cuda.TASKS,
-        "fused_blocks": em_fused_cuda.BLOCKS,
-        "gibbs_launches": gibbs_cuda.LAUNCHES, "gibbs_jobs": gibbs_cuda.JOBS,
-        "posterior_launches": posterior_gibbs_cuda.LAUNCHES,
-        "posterior_clusters": posterior_gibbs_cuda.CLUSTERS,
-        "group_launches": group_scores_cuda.LAUNCHES,
-        "group_clusters": group_scores_cuda.CLUSTERS,
-        "posterior_k_launches": posterior_gibbs_k_cuda.LAUNCHES,
-        "posterior_k_clusters": posterior_gibbs_k_cuda.CLUSTERS,
-        "scored_cuda": posteriors.SCORED_CLUSTERS.get("cuda", 0),
-        "scored_cpu": posteriors.SCORED_CLUSTERS.get("cpu", 0),
-        "host_enumeration": posteriors.HOST_ENUMERATION["clusters"],
-        "sharded_pair_clusters": posteriors.SHARDED_PAIR_CLUSTERS,
-    }
+    return collections.Counter(spans.recent_runs(1)[0]["counters"])
 
 
 def check_routes(model, fused, stats, counts, hap_gibbs=False, ploidy=2):
@@ -1841,29 +1805,30 @@ def check_routes(model, fused, stats, counts, hap_gibbs=False, ploidy=2):
     em_tasks = stats.get("em_tasks", 0)
     if fused:
         ok = (
-            counts["fused_tasks"] == em_tasks and counts["ragged_launches"] == 0
-            and counts["fused_launches"] >= 1 and counts["fused_blocks"] >= 1
+            counts["em.padded.tasks"] == em_tasks and counts["em.ragged.launches"] == 0
+            and counts["em.padded.launches"] >= 1 and counts["em.padded.blocks"] >= 1
         )
     else:
-        ok = counts["fused_launches"] == 0 and counts["ragged_tasks"] == em_tasks and (
-            counts["ragged_launches"] >= 1 or em_tasks == 0
+        ok = counts["em.padded.launches"] == 0 and counts["em.ragged.tasks"] == em_tasks and (
+            counts["em.ragged.launches"] >= 1 or em_tasks == 0
         )
     scored = stats.get("scored_clusters", 0)
-    host = stats.get("enumeration_fallback_clusters", 0)
+    host = counts["groups.host_enum_clusters"]
     enumeration = not hap_gibbs and ploidy != 2
     if model in ("haplotypes", "haplotype-transcripts"):
         on_card = 0 if hap_gibbs and ploidy != 2 else scored - host
-        ok = ok and counts["scored_cuda"] == on_card and counts["scored_cpu"] == host
-        ok = ok and counts["host_enumeration"] == host and (host == 0 or enumeration)
+        ok = ok and counts["posteriors.scored.cuda"] == on_card
+        ok = ok and counts["posteriors.scored.cpu"] == host and (host == 0 or enumeration)
     gibbs_jobs = stats.get("gibbs_jobs", 0)
-    ok = ok and counts["gibbs_jobs"] == gibbs_jobs and (counts["gibbs_launches"] >= 1) == (gibbs_jobs > 0)
-    for prefix, clusters in (
-        ("posterior", scored if hap_gibbs and ploidy == 2 else 0),
-        ("posterior_k", scored if hap_gibbs and ploidy != 2 else 0),
-        ("group", scored - host if enumeration else 0),
+    ok = ok and counts["gibbs.readcount.jobs"] == gibbs_jobs and (
+        counts["gibbs.readcount.launches"] >= 1) == (gibbs_jobs > 0)
+    for kernel, covered, clusters in (
+        ("gibbs.pair", "clusters", scored if hap_gibbs and ploidy == 2 else 0),
+        ("gibbs.kslot", "clusters", scored if hap_gibbs and ploidy != 2 else 0),
+        ("groups", "kernel_clusters", scored - host if enumeration else 0),
     ):
-        ok = ok and counts[f"{prefix}_clusters"] == clusters and (
-            counts[f"{prefix}_launches"] >= 1) == (clusters > 0)
+        ok = ok and counts[f"{kernel}.{covered}"] == clusters and (
+            counts[f"{kernel}.launches"] >= 1) == (clusters > 0)
     if not ok:
         raise AssertionError(f"{model}: device work not all through the kernels: {counts}")
 
@@ -1877,12 +1842,11 @@ def gibbs_writer_seconds(stats):
 
 def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, threads,
               model, info, fused=False, extra=()):
-    """One CLI run at full width with the counters reset just before and
-    read just after; returns (stats, counters) after printing a line."""
+    """One CLI run at full width with the run's counters read just after;
+    returns (stats, counters) after printing a line."""
     torch.cuda.reset_peak_memory_stats(device)
     if fused:
         os.environ["RPVG_TPU_FUSE_EM"] = "1"
-    reset_counters()
     t0 = time.perf_counter()
     try:
         rc, stats = cli.run_cli(cli_argv(paths, prefix, "cuda", threads, model, info) + list(extra))
@@ -1904,25 +1868,25 @@ def bench_run(torch, device, cli, check_estimate_file, phase, paths, prefix, thr
         if not gibbs_rows or not all(all(map(math.isfinite, v)) for v in gibbs_rows.values()):
             raise AssertionError(f"{model}: _gibbs.txt.gz has no rows or non-finite samples")
         gibbs = (f", {stats['gibbs_jobs']} Gibbs jobs through the read-count kernel in "
-                 f"{counts['gibbs_launches']} launch(es), _gibbs.txt.gz {len(gibbs_rows)} rows x "
+                 f"{counts['gibbs.readcount.launches']} launch(es), _gibbs.txt.gz {len(gibbs_rows)} rows x "
                  f"{len(header) - 2} samples, all finite, its writer "
                  f"{gibbs_writer_seconds(stats)}")
     if "--use-hap-gibbs" in extra and ploidy == 2:
-        gibbs += (f", {counts['posterior_clusters']} clusters through the posterior kernel in "
-                  f"{counts['posterior_launches']} launch(es)")
+        gibbs += (f", {counts['gibbs.pair.clusters']} clusters through the posterior kernel in "
+                  f"{counts['gibbs.pair.launches']} launch(es)")
     elif "--use-hap-gibbs" in extra:
-        gibbs += (f", {counts['posterior_k_clusters']} clusters through the k-slot kernel in "
-                  f"{counts['posterior_k_launches']} launch(es)")
+        gibbs += (f", {counts['gibbs.kslot.clusters']} clusters through the k-slot kernel in "
+                  f"{counts['gibbs.kslot.launches']} launch(es)")
     elif ploidy != 2:
-        gibbs += (f", {counts['group_clusters']} clusters through the group-score kernel in "
-                  f"{counts['group_launches']} launch(es), {counts['host_enumeration']} on the "
-                  f"host engine in {stats['enumeration_fallback_seconds']:.2f}s")
+        gibbs += (f", {counts['groups.kernel_clusters']} clusters through the group-score kernel in "
+                  f"{counts['groups.launches']} launch(es), {counts['groups.host_enum_clusters']} on the "
+                  f"host engine in {stats['spans']['rpvg.groups.host_enum']['total_s']:.2f}s")
     phases = ", ".join(f"{k} {v:.3f}s" for k, v in stats["phase_seconds"].items())
     route = "multi-bucket kernel" if fused else "ragged kernel"
     em = (
         f"{stats['em_tasks']} EM tasks all through the {route} in "
-        f"{counts['fused_launches'] if fused else counts['ragged_launches']} launch(es)"
-        + (f" of {counts['fused_blocks']} blocks" if fused else "")
+        f"{counts['em.padded.launches'] if fused else counts['em.ragged.launches']} launch(es)"
+        + (f" of {counts['em.padded.blocks']} blocks" if fused else "")
         if "em_tasks" in stats else "no EM"
     )
     scored = f", {stats['scored_clusters']} clusters scored on cuda" if "scored_clusters" in stats else ""
@@ -1953,9 +1917,9 @@ PLOIDY_RUNS = (
 def phase_full_width_ploidy(torch, device, cli, check_estimate_file, bench, work, threads):
     """Phase 10: haplotypes -y 3, haplotype-transcripts -f -y 3,
     haplotypes -y 3 --use-hap-gibbs and haplotype-transcripts -f -y 4 on
-    phase 4's dataset, each with the
-    counters reset just before and read just after; what each run handed
-    the group-score kernel and the k-slot sampler is captured (the script
+    phase 4's dataset, each with the run's counters read just after;
+    what each run handed the group-score kernel and the k-slot sampler
+    is captured (the script
     wraps both entries), and so are the P of phase B's clusters.  Prints
     per run the phase-4 line, then phase B's engine, the histogram of P
     and the clusters the host enumeration engine took, with its seconds.
@@ -2013,8 +1977,9 @@ def phase_full_width_ploidy(torch, device, cli, check_estimate_file, bench, work
                 f"phase 10: {model}{' -f' if info else ''} {' '.join(extra)}: phase B "
                 f"({stats['group_engine']}) {stats['phase_seconds']['B']:.3f}s; P of its "
                 f"{len(paths[key])} clusters: {histogram_of_paths(paths[key])}; "
-                f"{stats['enumeration_fallback_clusters']} clusters on the host enumeration "
-                f"engine (P {over}) in {stats['enumeration_fallback_seconds']:.3f}s"
+                f"{counts['groups.host_enum_clusters']} clusters on the host enumeration "
+                f"engine (P {over}) in "
+                f"{stats['spans'].get('rpvg.groups.host_enum', {}).get('total_s', 0.0):.3f}s"
             )
     finally:
         group_scores_cuda.group_scores, posterior_gibbs_k_cuda.posterior_gibbs_k = score, sample
@@ -2023,13 +1988,13 @@ def phase_full_width_ploidy(torch, device, cli, check_estimate_file, bench, work
         posteriors.path_group_posteriors_full = host_engine
     return (
         scores, engine_inputs, jobs.get("hap-gibbs", []),
-        launches["haplotypes"]["group_launches"], launches["hap-gibbs"]["posterior_k_launches"],
+        launches["haplotypes"]["groups.launches"], launches["hap-gibbs"]["gibbs.kslot.launches"],
     )
 
 
 def phase_independent(torch, device, cli, check_estimate_file, bench, work, threads):
     """Phase 13: haplotype-transcripts -f --ind-hap-inference on phase 4's
-    dataset with the counters reset just before and read just after (the
+    dataset with the run's counters read just after (the
     EM tasks all through the ragged kernel, phase I2's jobs through the
     pair scorer on cuda); the tasks phase D hands em_cuda.em_fixed_point
     are captured, then re-timed and held against the plain version as in
@@ -2054,10 +2019,10 @@ def phase_independent(torch, device, cli, check_estimate_file, bench, work, thre
     log(
         f"phase 13: --ind-hap-inference: I1 group matrices {phases['I1']:.3f}s, I2 group "
         f"posteriors ({stats['group_engine']}, {stats['scored_clusters']} (cluster, transcript "
-        f"group) jobs, {counts['scored_cuda']} scored on cuda) {phases['I2']:.3f}s, I3 subset "
+        f"group) jobs, {counts['posteriors.scored.cuda']} scored on cuda) {phases['I2']:.3f}s, I3 subset "
         f"sampling {phases['I3']:.3f}s, C task fill {phases['C']:.3f}s, D {phases['D']:.3f}s "
-        f"on {stats['em_tasks']} EM tasks ({counts['ragged_tasks']} through the ragged kernel "
-        f"in {counts['ragged_launches']} launches), E {phases['E']:.3f}s"
+        f"on {stats['em_tasks']} EM tasks ({counts['em.ragged.tasks']} through the ragged kernel "
+        f"in {counts['em.ragged.launches']} launches), E {phases['E']:.3f}s"
     )
     em = phase_main_path_em(torch, device, captured, phase=13, run="the --ind-hap-inference run",
                             plain_tasks=1024)
@@ -2066,7 +2031,7 @@ def phase_independent(torch, device, cli, check_estimate_file, bench, work, thre
 
 # Runs the CLI in a fresh interpreter (so its workers fork before any
 # CUDA context exists), each worker recording the CUDA state it finds,
-# with chip_smoke's counters reset just before and read just after.
+# with the run's counters read just after.
 MP_PROBE = r"""
 import json, os, sys
 import torch
@@ -2084,11 +2049,9 @@ def recording_worker(args):
     return shard_worker(args)
 
 multihost._shard_worker = recording_worker
-chip_smoke.reset_counters()
 rc, stats = cli.run_cli(argv)
 counts = chip_smoke.read_counters()
-keep = ("phase_seconds", "em_tasks", "scored_clusters", "enumeration_fallback_clusters",
-        "gibbs_jobs", "num_clusters", "fragment_pass_seconds", "fragment_scan_s", "merge_s",
+keep = ("phase_seconds", "em_tasks", "scored_clusters", "gibbs_jobs", "num_clusters", "fragment_pass_seconds", "fragment_scan_s", "merge_s",
         "matrix_seconds", "output_seconds", "wall_seconds")
 print(json.dumps({"rc": rc, "stats": {k: stats[k] for k in keep} if stats else None,
                   "counts": counts, "peak_mib": torch.cuda.max_memory_allocated() / 2**20}))
@@ -2116,7 +2079,7 @@ def phase_multiprocess(bench, work, threads, main_stats, main_prefix, workers=4)
     if proc.returncode != 0:
         raise RuntimeError(f"--multiprocess {workers} exited {proc.returncode}: {proc.stderr[-2000:]}")
     result = json.loads(proc.stdout.strip().splitlines()[-1])
-    stats, counts = result["stats"], result["counts"]
+    stats, counts = result["stats"], collections.Counter(result["counts"])
     if result["rc"] != 0:
         raise RuntimeError(f"--multiprocess {workers} CLI exited {result['rc']}")
     found = [json.load(open(path)) for path in glob.glob(os.path.join(work, "mp_worker_*.json"))]
@@ -2139,7 +2102,7 @@ def phase_multiprocess(bench, work, threads, main_stats, main_prefix, workers=4)
         f"single-process {main_stats['fragment_pass_seconds']:.2f}s; matrices "
         f"{stats['matrix_seconds']:.2f}s, phases {phases}, outputs "
         f"{stats['output_seconds']:.2f}s; {stats['em_tasks']} EM tasks through the ragged kernel "
-        f"in {counts['ragged_launches']} launches; {workers} workers forked with no CUDA state "
+        f"in {counts['em.ragged.launches']} launches; {workers} workers forked with no CUDA state "
         f"(not initialised, not a bad fork); .txt and _joint.txt byte-identical to phase 4's; "
         f"max_memory_allocated {result['peak_mib']:.1f} MiB"
     )
@@ -2170,13 +2133,12 @@ def read_outputs(prefix, suffixes):
 
 
 def sharded_cli_run(torch, device, cli, argv, shards):
-    """One CLI run on ``shards`` virtual shards of the card, counters
-    reset just before and read just after; returns (stats, counters)."""
+    """One CLI run on ``shards`` virtual shards of the card, the run's
+    counters read just after; returns (stats, counters)."""
     from rpvg_tpu_torch.parallel import autoshard
 
     with autoshard.virtual_devices(device, shards):
         torch.cuda.reset_peak_memory_stats(device)
-        reset_counters()
         rc, stats = cli.run_cli(argv)
         counts = read_counters()
     if rc != 0:
@@ -2211,6 +2173,7 @@ def phase_virtual_main_path(torch, device, cli, bench, work, threads, main_stats
     Returns (stats, counters, phase B's inputs, whether the outputs are
     phase 4's bytes), the last checked by the caller after (a')."""
     from rpvg_tpu_torch.infer import batched_models
+    from rpvg_tpu_torch.testing import shard_counts
 
     captured = []
     score = batched_models.diploid_posteriors_batched
@@ -2233,7 +2196,6 @@ def phase_virtual_main_path(torch, device, cli, bench, work, threads, main_stats
         f"{k} {v:.3f}s (phase 4: {main_stats['phase_seconds'][k]:.3f}s)"
         for k, v in stats["phase_seconds"].items()
     )
-    work_by_phase = "; ".join(f"{k} {v}" for k, v in stats["shard_work"].items())
     log(
         f"phase 15 (a): haplotype-transcripts -f on {VIRTUAL_SHARDS} virtual shards of cuda:0: "
         f"{PAIRS} pairs in {stats['wall_seconds']:.2f}s inside the CLI (phase 4: "
@@ -2241,9 +2203,10 @@ def phase_virtual_main_path(torch, device, cli, bench, work, threads, main_stats
         + "".join(f"{name} {stats[key]:.2f}s (phase 4: {main_stats[key]:.2f}s), " for name, key in (
             ("fragment pass", "fragment_pass_seconds"), ("matrices", "matrix_seconds"),
             ("outputs", "output_seconds")))
-        + f"phases {phases}; tasks or clusters per shard by phase: {work_by_phase}; "
-        f"{stats['em_tasks']} EM tasks through the ragged kernel in {counts['ragged_launches']} "
-        f"launches (phase 4: {main_counts['ragged_launches']}); .txt and _joint.txt byte-identical "
+        + f"phases {phases}; EM tasks per shard {shard_counts(counts, 'em_tasks')}, pair "
+        f"clusters per shard {shard_counts(counts, 'pair_clusters')}; "
+        f"{stats['em_tasks']} EM tasks through the ragged kernel in {counts['em.ragged.launches']} "
+        f"launches (phase 4: {main_counts['em.ragged.launches']}); .txt and _joint.txt byte-identical "
         f"to phase 4's: {same}; peak {stats['device_peak_mib_max']:.1f} MiB"
     )
     return stats, counts, captured, same
@@ -2302,6 +2265,8 @@ def phase_virtual_pair_scores(torch, device, captured):
 def phase_virtual_configs(torch, device, cli, compare, datasets, work, threads):
     """Phase 15 (b): SHARD_LABELS on VIRTUAL_SHARDS virtual shards against
     phase 3's one-shard cuda runs of the same argv, counters checked."""
+    from rpvg_tpu_torch.testing import shard_counts
+
     cli_configs = {c[0]: c for c in CLI_CONFIGS}
     gibbs_configs = {c[0]: c for c in GIBBS_CONFIGS}
     held = {}
@@ -2327,7 +2292,8 @@ def phase_virtual_configs(torch, device, cli, compare, datasets, work, threads):
             ("_gibbs.txt.gz",) if "-n" in extra else ())
         held[label] = hold_sharded_outputs(label, compare, prefix, ref_prefix, suffixes)
         log(f"phase 15 (b): {label}, 5000 pairs, {VIRTUAL_SHARDS} virtual shards vs one: "
-            f"{', '.join(suffixes)} {held[label]}; shard work {stats['shard_work']}")
+            f"{', '.join(suffixes)} {held[label]}; tasks, jobs and clusters per shard "
+            f"{shard_counts(counts)}")
     return held
 
 
@@ -2335,17 +2301,15 @@ def phase_virtual_giant(torch, device, cli, compare, small, work, threads, limit
     """Phase 15 (c): haplotypes under RPVG_TPU_PAIR_TENSOR_LIMIT=``limit``
     on one shard (column blocks) and on VIRTUAL_SHARDS virtual shards (the
     giant-cluster shard route, asserted to have run)."""
-    from rpvg_tpu_torch.infer import posteriors
-
     os.environ["RPVG_TPU_PAIR_TENSOR_LIMIT"] = limit
     try:
         ran = {}
         for shards in (1, VIRTUAL_SHARDS):
-            before = posteriors.SHARDED_PAIR_CLUSTERS
             prefix = os.path.join(work, f"giant_{shards}")
-            sharded_cli_run(torch, device, cli,
-                            cli_argv(small, prefix, "cuda", threads, "haplotypes", False), shards)
-            ran[shards] = posteriors.SHARDED_PAIR_CLUSTERS - before
+            _, counts = sharded_cli_run(
+                torch, device, cli, cli_argv(small, prefix, "cuda", threads, "haplotypes", False),
+                shards)
+            ran[shards] = counts["posteriors.sharded_pair_clusters"]
     finally:
         os.environ.pop("RPVG_TPU_PAIR_TENSOR_LIMIT", None)
     if ran[1] or not ran[VIRTUAL_SHARDS]:
@@ -2367,6 +2331,7 @@ def phase_virtual_em_step(torch, device):
     from rpvg_tpu_torch.entry import _example_batch
     from rpvg_tpu_torch.ops import em_fused_cuda
     from rpvg_tpu_torch.parallel import autoshard, mesh
+    from rpvg_tpu_torch.testing import counted
 
     B, R, C = 256, 64, 16
     probs, counts, col_masks = (torch.from_numpy(a).to(device) for a in _example_batch(B, R, C))
@@ -2375,10 +2340,10 @@ def phase_virtual_em_step(torch, device):
     for shards in (1, VIRTUAL_SHARDS):
         with autoshard.virtual_devices(device, shards) as devices:
             steps[shards] = mesh.sharded_em_step(mesh.make_mesh(devices), 10000, 1e-3)
-    launches = em_fused_cuda.LAUNCHES
-    abund, tpm = steps[VIRTUAL_SHARDS](probs, counts, col_masks, inv_eff)
+    with counted() as counters:
+        abund, tpm = steps[VIRTUAL_SHARDS](probs, counts, col_masks, inv_eff)
     torch.cuda.synchronize()
-    launches = em_fused_cuda.LAUNCHES - launches
+    launches = counters["em.padded.launches"]
     (plain,), _ = em_fused_cuda.em_fixed_point_padded_plain([(probs, counts, col_masks)], 10000, 1e-3)
     plain_tpm = float((plain[:, :-1] * counts.sum(dim=1)[:, None] * inv_eff).sum())
     err = float((abund - plain).abs().max())
@@ -2401,6 +2366,7 @@ def phase_virtual_shards(torch, device, cli, compare, datasets, bench, work, thr
     card with the real kernels ((a)-(e)), then (f) on real devices where
     the host has more than one."""
     from rpvg_tpu_torch.entry import dryrun_multidevice
+    from rpvg_tpu_torch.testing import shard_counts
 
     t0 = time.perf_counter()
     stats, counts, captured, same = phase_virtual_main_path(torch, device, cli, bench, work,
@@ -2422,7 +2388,6 @@ def phase_virtual_shards(torch, device, cli, compare, datasets, bench, work, thr
     if count > 1:
         prefix = os.path.join(work, "real_shards")
         with_real = cli_argv(bench, prefix, "cuda", threads)
-        reset_counters()
         rc, real_stats = cli.run_cli(with_real)
         real_counts = read_counters()
         if rc != 0 or real_stats["data_shards"] != count:
@@ -2432,7 +2397,8 @@ def phase_virtual_shards(torch, device, cli, compare, datasets, bench, work, thr
                                          os.path.join(work, "bench"), (".txt", "_joint.txt"))
         real_report = dryrun_multidevice(min(count, VIRTUAL_SHARDS), "cuda")
         log(f"phase 15 (f): the main path on {count} devices in {real_stats['wall_seconds']:.2f}s, "
-            f"shard work {real_stats['shard_work']}, {real_held} against phase 4; "
+            f"tasks, jobs and clusters per shard {shard_counts(real_counts)}, {real_held} against "
+            f"phase 4; "
             f"dryrun_multidevice({min(count, VIRTUAL_SHARDS)}, cuda): {real_report}")
     else:
         log(f"phase 15 (f): {count} CUDA device visible: only virtual shards ran (a real "
@@ -2470,13 +2436,12 @@ def with_switches(switches, fn):
 def fused_run(torch, device, cli, check_estimate_file, label, paths, prefix, threads, model,
               info, switches, backend="cuda", extra=(), phase="16"):
     """One CLI run on a fused route (``switches``) at full width, with the
-    counters reset just before and read just after: every task of the
-    device legs in an EM kernel, every Gibbs job in the read-count
-    kernel, no phase B on the card (the C++ call scores the pairs).
-    Returns (stats, counters, wall) after printing a line."""
+    run's counters read just after: every task of the device legs in an
+    EM kernel, every Gibbs job in the read-count kernel, no phase B on the
+    card (the C++ call scores the pairs).  Returns (stats, counters, wall)
+    after printing a line."""
     if backend == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    reset_counters()
     t0 = time.perf_counter()
     rc, stats = with_switches(switches, lambda: cli.run_cli(
         cli_argv(paths, prefix, backend, threads, model, info) + list(extra)))
@@ -2487,19 +2452,19 @@ def fused_run(torch, device, cli, check_estimate_file, label, paths, prefix, thr
     if stats.get("route") != "fused native":
         raise AssertionError(f"phase {phase} {label}: the fused route did not run")
     rows = [check_estimate_file(prefix + s) for s in output_suffixes(model)]
+    gibbs_jobs = stats.get("gibbs_jobs", 0)
     if backend == "cuda" and not (
-        counts["ragged_tasks"] + counts["fused_tasks"] == stats["device_em_tasks"]
-        and counts["gibbs_jobs"] == stats["gibbs_jobs"]
-        and (counts["gibbs_launches"] >= 1) == (stats["gibbs_jobs"] > 0)
-        and counts["scored_cuda"] == 0 and counts["scored_cpu"] == 0
+        counts["em.ragged.tasks"] + counts["em.padded.tasks"] == counts["fused.device_em_tasks"]
+        and counts["gibbs.readcount.jobs"] == gibbs_jobs
+        and (counts["gibbs.readcount.launches"] >= 1) == (gibbs_jobs > 0)
+        and counts["posteriors.scored.cuda"] == 0 and counts["posteriors.scored.cpu"] == 0
     ):
         raise AssertionError(f"phase {phase} {label}: device work not all through the kernels: "
                              f"{counts}, stats {stats}")
-    legs = {key: stats[key] for key in (
-        "em_bound", "device_em_tasks", "escalated_tasks", "escalated_area",
-        "escalated_on_device", "deferred_tasks", "routed_slots", "routed_tasks",
-        "routed_area", "dispatch_seconds", "gather_wait_seconds")
-        if key in stats}
+    legs = {**{key: stats[key] for key in ("em_bound", "gibbs_jobs") if key in stats},
+            **{name: n for name, n in counts.items() if name.startswith("fused.")},
+            **{name: span["total_s"] for name, span in stats["spans"].items()
+               if name.startswith("rpvg.fused.")}}
     phases = ", ".join(f"{k} {v:.3f}s" for k, v in stats["phase_seconds"].items())
     peak = (f"; max_memory_allocated {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB"
             if backend == "cuda" else "")
@@ -2509,10 +2474,10 @@ def fused_run(torch, device, cli, check_estimate_file, label, paths, prefix, thr
         f"in {wall:.2f}s wall = {PAIRS / wall:.1f} read pairs/s; fragment pass "
         f"{stats['fragment_pass_seconds']:.2f}s, matrices {stats['matrix_seconds']:.2f}s, phases "
         f"{phases}, outputs {stats['output_seconds']:.2f}s; {stats['em_tasks']} EM tasks, legs "
-        f"{json.dumps(legs)}; kernels: ragged {counts['ragged_launches']} launch(es) / "
-        f"{counts['ragged_tasks']} tasks, multi-bucket {counts['fused_launches']} / "
-        f"{counts['fused_tasks']}, read-count {counts['gibbs_launches']} / "
-        f"{counts['gibbs_jobs']} jobs; output rows {' + '.join(map(str, rows))}, all finite{peak}"
+        f"{json.dumps(legs)}; kernels: ragged {counts['em.ragged.launches']} launch(es) / "
+        f"{counts['em.ragged.tasks']} tasks, multi-bucket {counts['em.padded.launches']} / "
+        f"{counts['em.padded.tasks']}, read-count {counts['gibbs.readcount.launches']} / "
+        f"{counts['gibbs.readcount.jobs']} jobs; output rows {' + '.join(map(str, rows))}, all finite{peak}"
     )
     return stats, counts, wall
 
@@ -2554,7 +2519,6 @@ def routes_in_turns(torch, device, cli, check_estimate_file, label, bench, prefi
     phases and the outputs of each run, printed and returned."""
     walls = {"staged": [], "fused": []}
     for k, route in enumerate(("staged", "fused", "fused", "staged")):
-        reset_counters()
         tag = f"turn_{model}_{k}"
         rc, stats = with_switches(switches if route == "fused" else {}, lambda: cli.run_cli(
             cli_argv(bench, prefix(tag), "cuda", threads, model, info)))
@@ -2692,8 +2656,8 @@ def phase_fused_routes(torch, device, cli, compare, check_estimate_file, bench, 
         stats_a, counts_a, _ = run("(a)", "a", nested)
     finally:
         native.nested_diploid_infer, em_cuda.em_fixed_point = infer, launch
-    if not (counts_a["ragged_launches"] >= 1
-            and counts_a["ragged_tasks"] == stats_a["escalated_on_device"] > 0):
+    if not (counts_a["em.ragged.launches"] >= 1
+            and counts_a["em.ragged.tasks"] == counts_a["fused.escalated_on_device"] > 0):
         raise AssertionError(f"phase 16 (a): the escalated tail did not run on the ragged "
                              f"kernel: {counts_a}")
     run("(a)", "a_cpu", nested, backend="cpu")
@@ -2703,21 +2667,21 @@ def phase_fused_routes(torch, device, cli, compare, check_estimate_file, bench, 
                               run="the escalated tail")
     out["a"] = {"native_s": stats_a["phase_seconds"]["native"],
                 "device_s": stats_a["phase_seconds"]["device"],
-                "launches": counts_a["ragged_launches"], "tasks": counts_a["ragged_tasks"],
-                "area": stats_a["escalated_area"], **tail,
+                "launches": counts_a["em.ragged.launches"], "tasks": counts_a["em.ragged.tasks"],
+                "area": counts_a["fused.escalated_area"], **tail,
                 **routes_in_turns(torch, device, cli, check_estimate_file, "(a)", bench, prefix,
                                   threads, model, True, nested)}
 
     # (b) the JAX package's default: the tail rebatched on the host.
     stats_b, counts_b, _ = run("(b)", "b", {**nested, "RPVG_TPU_ESC_MIN_AREA": str(10**12)})
-    if counts_b["ragged_launches"] or stats_b["escalated_on_device"]:
+    if counts_b["em.ragged.launches"] or counts_b["fused.escalated_on_device"]:
         raise AssertionError(f"phase 16 (b): the tail went to the card: {counts_b}")
     hold_outputs("(b) host tail, cuda vs cpu", compare, prefix("b"), prefix("a_cpu"), model)
     out["b"] = {"native_s": stats_b["phase_seconds"]["native"],
                 "device_s": stats_b["phase_seconds"]["device"],
-                "escalated_tasks": stats_b["escalated_tasks"]}
-    log(f"phase 16 (b): the escalated tail ({stats_a['escalated_tasks']} tasks, "
-        f"{stats_a['escalated_area']} elements): device leg on the ragged kernel "
+                "escalated_tasks": counts_b["fused.escalated_tasks"]}
+    log(f"phase 16 (b): the escalated tail ({counts_a['fused.escalated_tasks']} tasks, "
+        f"{counts_a['fused.escalated_area']} elements): device leg on the ragged kernel "
         f"{out['a']['device_s']:.3f} s in (a) against the host rebatch's "
         f"{out['b']['device_s']:.3f} s here (phase clock)")
 
@@ -2743,15 +2707,15 @@ def phase_fused_routes(torch, device, cli, compare, check_estimate_file, bench, 
                                    {**nested, "RPVG_TPU_DEVICE_SLOT_AREA": str(cutoff)})
     finally:
         em_fused_cuda.em_fixed_point_padded = padded
-    if not (counts_c["fused_launches"] >= 1 and stats_c["routed_slots"] >= 1):
+    if not (counts_c["em.padded.launches"] >= 1 and counts_c["fused.routed_slots"] >= 1):
         raise AssertionError(f"phase 16 (c): no slot routed to the card: {counts_c}")
     hold_outputs("(c) cuda vs (a) cpu", compare, prefix("c"), prefix("a_cpu"), model)
     slots = captured_blocks_check(torch, blocks_in, "(c)")
     out["c"] = {"dispatch_us": dispatch_s * 1e6, "h2d_gbps": h2d_bps / 1e9, "cutoff": cutoff,
-                "routed_slots": stats_c["routed_slots"], "routed_tasks": stats_c["routed_tasks"],
-                "launches": counts_c["fused_launches"], "tasks": counts_c["fused_tasks"],
-                "dispatch_s": stats_c["dispatch_seconds"],
-                "gather_wait_s": stats_c["gather_wait_seconds"], **slots}
+                "routed_slots": counts_c["fused.routed_slots"], "routed_tasks": counts_c["fused.routed_tasks"],
+                "launches": counts_c["em.padded.launches"], "tasks": counts_c["em.padded.tasks"],
+                "dispatch_s": stats_c["spans"]["rpvg.fused.dispatch"]["total_s"],
+                "gather_wait_s": stats_c["spans"]["rpvg.fused.gather_wait"]["total_s"], **slots}
 
     # (d) -n 100 on the fused route, cuda against cpu (the samples are
     # allocated over the subsets on the host from the C++ call's subset
@@ -2761,7 +2725,7 @@ def phase_fused_routes(torch, device, cli, compare, check_estimate_file, bench, 
     hold_outputs("(d) -n 100 cuda vs phase 9's staged cpu", compare, prefix("d"),
                  os.path.join(work, "gibbs_main_cpu"), model)
     hold_gibbs("(d) -n 100 cuda vs cpu", compare, prefix("d"), prefix("d_cpu"))
-    out["d"] = {"launches": counts_d["gibbs_launches"], "jobs": counts_d["gibbs_jobs"],
+    out["d"] = {"launches": counts_d["gibbs.readcount.launches"], "jobs": counts_d["gibbs.readcount.jobs"],
                 "wall_s": wall_d, "D2_s": stats_d["phase_seconds"]["D2"]}
 
     # (e) the fused strains route, plain and -n 100, against the staged.
@@ -2778,14 +2742,13 @@ def phase_fused_routes(torch, device, cli, compare, check_estimate_file, bench, 
                  "strains")
     hold_gibbs("(e) -n 100 fused, cuda vs cpu", compare, prefix("e_n"), prefix("e_n_cpu"))
     out["e"] = {"native_s": stats_e["phase_seconds"]["native"], **turns,
-                "launches": counts_en["gibbs_launches"], "jobs": counts_en["gibbs_jobs"]}
+                "launches": counts_en["gibbs.readcount.launches"], "jobs": counts_en["gibbs.readcount.jobs"]}
 
     # (f) the composer off against on, byte for byte.
     run("(f)", "f", {**nested, "RPVG_TPU_COMPOSE_OUT": "0"})
     hold_outputs("(f) object writers vs composer", compare, prefix("f"), prefix("a"), model,
                  byte_identical=True)
     for tag, ref in (("transcripts", staged["transcripts"]), ("strains", staged["strains"])):
-        reset_counters()
         rc, _ = with_switches({"RPVG_TPU_COMPOSE_OUT": "0"}, lambda: cli.run_cli(
             cli_argv(bench, prefix(f"f_{tag}"), "cuda", threads, tag, tag == "transcripts")))
         if rc != 0:
@@ -2875,8 +2838,8 @@ def trace_summary(path, top=5, gaps=3):
 def phase_profile(torch, device, cli, compare, check_estimate_file, bench, work, threads):
     """Phase 17: phase 4's main path (staged) and phase 16 (a)'s fused
     nested route, each run without the profiler hook and then with
-    RPVG_TPU_TORCH_PROFILE (counters reset just before and read just
-    after each run); the hooked run writes the unhooked run's estimate
+    RPVG_TPU_TORCH_PROFILE (the run's counters read just after each
+    run); the hooked run writes the unhooked run's estimate
     bytes and one Chrome trace, whose busy share, top device operations
     and longest idle gaps are printed beside the hook's cost in wall.
     Fails when a trace holds no device activity, or when the main path's
@@ -2969,12 +2932,12 @@ def main() -> int:
 
     from rpvg_tpu_torch import alignments, cli, compare, native, sim
     from rpvg_tpu_torch.compare import check_estimate_file, compare_estimate_files
-    from rpvg_tpu_torch.infer import posteriors
     from rpvg_tpu_torch.io import rpa
     from rpvg_tpu_torch.ops import (
         build, em_cuda, em_fused_cuda, gibbs_cuda, group_scores_cuda, posterior_gibbs_cuda,
         posterior_gibbs_k_cuda,
     )
+    from rpvg_tpu_torch.testing import shard_counts
 
     t0 = time.perf_counter()
     if native.load_library() is None:
@@ -3056,7 +3019,7 @@ def main() -> int:
         finally:
             em_cuda.em_fixed_point = launch
         main_counts = counts
-        ragged_launches = main_path_launches = counts["ragged_launches"]
+        ragged_launches = main_path_launches = counts["em.ragged.launches"]
         main_em = phase_main_path_em(torch, device, captured)
 
         # Phase 5: the multi-bucket kernel.
@@ -3073,10 +3036,10 @@ def main() -> int:
             _, counts = bench_run(torch, device, cli, check_estimate_file, 6, bench, prefix,
                                   threads, model, info, fused)
             if fused:
-                fused_launches = counts["fused_launches"]
-                fused_route_tasks = counts["fused_tasks"]
+                fused_launches = counts["em.padded.launches"]
+                fused_route_tasks = counts["em.padded.tasks"]
             else:
-                ragged_launches += counts["ragged_launches"]
+                ragged_launches += counts["em.ragged.launches"]
         rep = compare_estimate_files(
             prefixes[("transcripts", True)] + ".txt", prefixes[("transcripts", False)] + ".txt",
             RTOL, ATOL_OUT,
@@ -3138,8 +3101,8 @@ def main() -> int:
             + gibbs_rows_text(gibbs_rep))
         if not gibbs_rep["ok"]:
             raise AssertionError("-n 100 main path: Gibbs samples differ across devices")
-        gibbs_launches = runs["main"][1]["gibbs_launches"]
-        posterior_launches = runs["haplotypes"][1]["posterior_launches"]
+        gibbs_launches = runs["main"][1]["gibbs.readcount.launches"]
+        posterior_launches = runs["haplotypes"][1]["gibbs.pair.launches"]
 
         # Phase 10: ploidy 3 at full width on phase 4's dataset.
         scores_captured, over_captured, k_captured, group_launches, k_launches = phase_full_width_ploidy(
@@ -3197,8 +3160,9 @@ def main() -> int:
             "main_path_tasks_bound_ms": main_em["bound_ms"],
             "main_path_slowest_task_ms": main_em["slowest_task_ms"],
             "virtual_shards": VIRTUAL_SHARDS,
-            "virtual_shards_main_path_launches": virtual["main_counts"]["ragged_launches"],
-            "virtual_shards_main_path_tasks_per_shard": virtual["main_stats"]["shard_work"]["D"],
+            "virtual_shards_main_path_launches": virtual["main_counts"]["em.ragged.launches"],
+            "virtual_shards_main_path_tasks_per_shard": shard_counts(virtual["main_counts"],
+                                                                     "em_tasks"),
             **{f"fused_route_escalated_{key}": fused_routes["a"][key] for key in (
                 "launches", "tasks", "area", "ms", "plain_ms", "bound_ms", "bound_by",
                 "max_abs_err", "slowest_task_ms")},
@@ -3208,7 +3172,7 @@ def main() -> int:
             "route": "cuda",
             "source": "rpvg_tpu_torch/csrc/em_fixed_point.cu",
             "replaces": "rpvg_tpu/ops/em_pallas.py:46",
-            "launches": ind_counts["ragged_launches"],
+            "launches": ind_counts["em.ragged.launches"],
             "max_abs_err": ind_em["max_abs_err"],
             "ms": ind_em["ms"],
             "plain_ms": ind_em["plain_ms"],

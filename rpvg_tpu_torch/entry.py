@@ -233,7 +233,6 @@ def _dryrun_full_pipeline(n_devices: int, device: torch.device, virtual: bool) -
     from rpvg_tpu_torch import sim
     from rpvg_tpu_torch.alignments import parse_multipath_alignment
     from rpvg_tpu_torch.compare import compare_estimate_files, compare_gibbs_files
-    from rpvg_tpu_torch.infer import posteriors
     from rpvg_tpu_torch.pipeline import PipelineConfig, run_pipeline
 
     panel = sim.build_gene_panel(
@@ -259,10 +258,9 @@ def _dryrun_full_pipeline(n_devices: int, device: torch.device, virtual: bool) -
                 blobs = {}
                 for label, leg in (("sharded", _sharded(device, n_devices, virtual)),
                                    ("single", _one_shard())):
-                    before = posteriors.SHARDED_PAIR_CLUSTERS
                     prefix = os.path.join(tmp, f"out_{regime}_{label}")
                     with leg:
-                        run_pipeline(
+                        stats = run_pipeline(
                             PipelineConfig(
                                 graph=panel.graph, paths=panel.paths_index,
                                 alignments=alns, output_prefix=prefix,
@@ -274,7 +272,7 @@ def _dryrun_full_pipeline(n_devices: int, device: torch.device, virtual: bool) -
                             ),
                             device,
                         )
-                    ran = posteriors.SHARDED_PAIR_CLUSTERS - before
+                    ran = stats["counters"].get("posteriors.sharded_pair_clusters", 0)
                     if label == "sharded":
                         assert ran > 0, (
                             f"the giant-cluster shard route never ran in the {regime} "

@@ -57,7 +57,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from itertools import chain
 from typing import Dict, List, Optional, Tuple
 
@@ -90,7 +89,6 @@ from rpvg_tpu_torch.infer.estimators import (
     PathGroupPosteriorEstimator,
 )
 from rpvg_tpu_torch.infer.posteriors import (
-    HOST_ENUMERATION,
     diploid_posteriors_batched,
     full_posteriors_batched,
     path_group_posteriors_gibbs_batched,
@@ -156,28 +154,14 @@ def _group_engine(group_size: int, gibbs: bool) -> str:
     return f"full enumeration, group size {group_size}"
 
 
-def _fallback_since(before: Dict[str, float]) -> Dict:
-    """The clusters and seconds of the full enumeration's host engine
-    since ``before`` (a copy of ``posteriors.HOST_ENUMERATION``)."""
-    now = HOST_ENUMERATION
-    return {
-        "enumeration_fallback_clusters": int(now["clusters"] - before["clusters"]),
-        "enumeration_fallback_seconds": now["seconds"] - before["seconds"],
-    }
-
-
 class _PhaseClock:
     """Host-clock phase times, each phase a span ``rpvg.phase.<key>``
     (:mod:`rpvg_tpu_torch.spans`); on CUDA each boundary waits for every
-    data shard's device so a phase is charged all of its device work.
-    Also keeps, per phase with device dispatches, the tasks or clusters
-    each shard took (``autoshard.take_shard_work``)."""
+    data shard's device so a phase is charged all of its device work."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.seconds: Dict[str, float] = {}
-        self.shard_work: Dict[str, List[int]] = {}
-        autoshard.take_shard_work()
         # A phase is named by the lap that ends it: a profiler session
         # sees it as ``rpvg.phase``.
         self.phase = spans.begin("rpvg.phase")
@@ -192,9 +176,6 @@ class _PhaseClock:
         now = spans.clock()
         seconds = self.phase.close(now, f"rpvg.phase.{key}")
         self.seconds[key] = self.seconds.get(key, 0.0) + seconds
-        work = autoshard.take_shard_work()
-        if work:
-            self.shard_work[key] = work
         self.phase = spans.begin("rpvg.phase", start=now)
 
     def discard(self) -> None:
@@ -204,13 +185,11 @@ class _PhaseClock:
 
     def report(self) -> Dict:
         """``phase_seconds``; ``data_shards``, the shard count of the
-        run's device; ``shard_work``, per phase the items each shard took.
-        Ends the clock."""
+        run's device.  Ends the clock."""
         self.discard()
         return {
             "phase_seconds": self.seconds,
             "data_shards": autoshard.num_data_shards(self.device),
-            "shard_work": self.shard_work,
         }
 
 
@@ -223,10 +202,8 @@ def batched_haplotype_transcripts(
     with ``rng_seed`` keys its random streams.  Returns the seconds of
     phases A-E and D2 (``phase_seconds``), the number of clusters scored
     in phase B (``scored_clusters``) and its engine (``group_engine``),
-    the clusters and seconds of the full enumeration's host engine
-    (``enumeration_fallback_clusters``, ``_seconds``), the number of EM
-    tasks in phase D (``em_tasks``) and of Gibbs jobs in phase D2
-    (``gibbs_jobs``).  Under ``RPVG_TPU_FUSED_NESTED`` (at k = 2 without
+    the number of EM tasks in phase D (``em_tasks``) and of Gibbs jobs in
+    phase D2 (``gibbs_jobs``).  Under ``RPVG_TPU_FUSED_NESTED`` (at k = 2 without
     --use-hap-gibbs, with the native library) the fused native route runs
     instead and returns its own phases and counters
     (:func:`_batched_haplotype_transcripts_fused`)."""
@@ -286,7 +263,6 @@ def batched_haplotype_transcripts(
     # every cluster, or the collapsed Gibbs sampler under --use-hap-gibbs
     # (consuming each cluster's first key, as the per-cluster estimator
     # does).
-    fallback = dict(HOST_ENUMERATION)
     if estimator.use_group_post_gibbs:
         posterior_results = path_group_posteriors_gibbs_batched(
             inputs, estimator.group_size,
@@ -298,7 +274,6 @@ def batched_haplotype_transcripts(
         )
     engine = _group_engine(estimator.group_size, estimator.use_group_post_gibbs)
     clock.lap(PHASES[1][0], engine)
-    fallback = _fallback_since(fallback)
 
     # Phase C (host): subset selection, then EM task matrices for every
     # (cluster, subset) in one threaded native call.
@@ -377,7 +352,6 @@ def batched_haplotype_transcripts(
         **clock.report(),
         "scored_clusters": len(meta),
         "group_engine": engine,
-        **fallback,
         "em_tasks": len(all_tasks),
         "gibbs_jobs": gibbs_jobs,
     }
@@ -390,18 +364,6 @@ def fused_route_asked(variable: str) -> bool:
     the fused route; which default the port takes is decided on its
     benchmark)."""
     return os.environ.get(variable, "0") != "0"
-
-
-# Counters of the fused nested route's device legs (its stats keys):
-# tasks whose EM ran on the device leg (the card on cuda), tasks the
-# bounded EM escalated and their matrices' elements, those of them that
-# went to the device, tasks the area cutoff deferred, the slots routed
-# and their tasks and elements, the Gibbs jobs.  Beside them the host
-# seconds spent in the dispatch and waiting in the gather.
-_FUSED_LEG_COUNTS = (
-    "device_em_tasks", "escalated_tasks", "escalated_area", "escalated_on_device",
-    "deferred_tasks", "routed_slots", "routed_tasks", "routed_area", "gibbs_jobs",
-)
 
 
 def escalation_min_area(device: torch.device) -> int:
@@ -453,7 +415,18 @@ def _batched_haplotype_transcripts_fused(
     (``RPVG_TPU_NATIVE_EM=0``: the kernels' plain versions).  Phases:
     ``native`` (the native passes and the dispatch), ``device`` (the
     device legs' EM, with the wait for a dispatch), ``D2`` (with
-    -n) and ``combine``."""
+    -n) and ``combine``.  Returns them with ``route``, ``em_bound``,
+    ``em_tasks`` and ``gibbs_jobs``.
+
+    The legs count in the run (:mod:`rpvg_tpu_torch.spans`):
+    ``fused.device_em_tasks`` (tasks whose EM ran on the device leg, the
+    card on cuda), ``fused.escalated_tasks`` / ``_area`` (tasks the
+    bounded EM escalated, their matrices' elements),
+    ``fused.escalated_on_device``, ``fused.deferred_tasks`` (tasks the
+    area cutoff deferred), ``fused.routed_slots`` / ``_tasks`` /
+    ``_area``; the host's time in the slot
+    dispatch and in the wait for it are the spans ``rpvg.fused.dispatch``
+    and ``rpvg.fused.gather_wait``."""
     from rpvg_tpu_torch import native
 
     rank_of = (lambda ci: ci) if ranks is None else ranks.__getitem__
@@ -492,8 +465,6 @@ def _batched_haplotype_transcripts_fused(
         em_bound = int(os.environ.get("RPVG_TPU_EM_BOUND", "1024"))
 
     emit_matrices = estimator.num_gibbs_samples > 0
-    legs = dict.fromkeys(_FUSED_LEG_COUNTS, 0)
-    legs.update(dispatch_seconds=0.0, gather_wait_seconds=0.0, em_bound=em_bound)
 
     def native_call(positions, cutoff, bound=0):
         return native.nested_diploid_infer(
@@ -522,16 +493,15 @@ def _batched_haplotype_transcripts_fused(
             clock.discard()
             return None
         dev_inputs = _section_task_matrices(dev_streams, emit_matrices)
-        t0 = time.perf_counter()
-        pending = dispatch_em_device(
-            dev_inputs, range(len(dev_inputs)), estimator.max_em_its,
-            estimator.max_rel_em_conv, device,
-        )
-        legs.update(
-            dispatch_seconds=time.perf_counter() - t0, device_em_tasks=len(dev_inputs),
-            routed_slots=len(device_pos), routed_tasks=len(dev_inputs),
-            routed_area=int(sum(m.size for m, _ in dev_inputs)),
-        )
+        with spans.Span("rpvg.fused.dispatch"):
+            pending = dispatch_em_device(
+                dev_inputs, range(len(dev_inputs)), estimator.max_em_its,
+                estimator.max_rel_em_conv, device,
+            )
+        spans.count("fused.routed_slots", len(device_pos))
+        spans.count("fused.routed_tasks", len(dev_inputs))
+        spans.count("fused.routed_area", int(sum(m.size for m, _ in dev_inputs)))
+        spans.count("fused.device_em_tasks", len(dev_inputs))
         host_streams = native_call(host_pos, 0)
         if host_streams is None:
             clock.discard()
@@ -551,7 +521,7 @@ def _batched_haplotype_transcripts_fused(
 
     col_parts = [
         _process_nested_section(
-            estimator, cluster_data, device, clock, legs, sec_streams, sec_meta, rank_of,
+            estimator, cluster_data, device, clock, sec_streams, sec_meta, rank_of,
             rng_seed, emit_matrices, sec_pending, stage_floor=em_bound,
         )
         for sec_meta, sec_streams, sec_pending in sections
@@ -560,8 +530,9 @@ def _batched_haplotype_transcripts_fused(
     return {
         **clock.report(),
         "route": "fused native",
+        "em_bound": em_bound,
         "em_tasks": int(sum(sec_streams["n_col"].size for _, sec_streams, _ in sections)),
-        **legs,
+        "gibbs_jobs": sum(part["gibbs_jobs"] for part in col_parts),
     }
 
 
@@ -654,7 +625,7 @@ def _section_task_matrices(streams, emit_matrices, task_ids=None):
 
 
 def _process_nested_section(
-    estimator, cluster_data, device, clock, legs, streams, meta, rank_of, rng_seed,
+    estimator, cluster_data, device, clock, streams, meta, rank_of, rng_seed,
     emit_matrices, pre_dispatched, stage_floor=0,
 ):
     """Decode one native-call section of the fused nested route on
@@ -662,9 +633,9 @@ def _process_nested_section(
     ``batched_models.py:880-1236``): the device EM of its deferred tasks
     (a pre-dispatched section's results are gathered here), the
     read-count Gibbs jobs and the per-cluster posterior-weighted combine,
-    lapped on ``clock`` as ``device``, ``D2`` and ``combine``; the legs'
-    counters add up in ``legs``.  Returns the section's columnar-output
-    arrays for :func:`_merge_nested_columnar`."""
+    lapped on ``clock`` as ``device``, ``D2`` and ``combine``; the legs
+    count in the run.  Returns the section's columnar-output
+    arrays for :func:`_merge_nested_columnar` and its ``gibbs_jobs``."""
     from rpvg_tpu_torch.infer.estimates import GroupSetViews
 
     totals = streams["totals"]
@@ -701,9 +672,8 @@ def _process_nested_section(
     if pre_dispatched is not None:
         pending, dev_inputs, task_ids = pre_dispatched
         device_results = [None] * len(dev_inputs)
-        t0 = time.perf_counter()
-        gather_em_device(pending, dev_inputs, device_results)
-        legs["gather_wait_seconds"] += time.perf_counter() - t0
+        with spans.Span("rpvg.fused.gather_wait"):
+            gather_em_device(pending, dev_inputs, device_results)
         device_of = dict(zip(task_ids, device_results))
     else:
         device_tasks = np.flatnonzero(~has_fracs)
@@ -714,10 +684,10 @@ def _process_nested_section(
             esc_min_area = escalation_min_area(device)
             total_area = sum(m.size for m, _ in task_inputs)
             if stage_floor > 0:
-                legs["escalated_tasks"] += len(task_inputs)
-                legs["escalated_area"] += int(total_area)
+                spans.count("fused.escalated_tasks", len(task_inputs))
+                spans.count("fused.escalated_area", int(total_area))
             else:
-                legs["deferred_tasks"] += len(task_inputs)
+                spans.count("fused.deferred_tasks", len(task_inputs))
             if stage_floor > 0 and total_area < esc_min_area:
                 # Resume from the bounded run's exit state (emitted by
                 # the kernel): bitwise-identical to an uninterrupted
@@ -740,8 +710,8 @@ def _process_nested_section(
                 )
             else:
                 if stage_floor > 0:
-                    legs["escalated_on_device"] += len(task_inputs)
-                legs["device_em_tasks"] += len(task_inputs)
+                    spans.count("fused.escalated_on_device", len(task_inputs))
+                spans.count("fused.device_em_tasks", len(task_inputs))
                 device_results = run_batched_em(
                     task_inputs, estimator.max_em_its, estimator.max_rel_em_conv, device
                 )
@@ -769,8 +739,8 @@ def _process_nested_section(
     # Read-count Gibbs sampling per selected subset (the posterior phase
     # took no keys in this configuration, so each cluster's key chain and
     # numpy stream start fresh at its rank).
+    jobs = []  # (slot, key_idx, task_id, n_here)
     if estimator.num_gibbs_samples > 0:
-        jobs = []  # (slot, key_idx, task_id, n_here)
         key_ranks = []
         max_depth = 0
         for slot, ci in enumerate(meta):
@@ -821,7 +791,6 @@ def _process_nested_section(
                     noise_samples[:n_here],
                     path_samples[:n_here],
                 )
-        legs["gibbs_jobs"] += len(jobs)
         clock.lap(PHASES[4][0], f"{PHASES[4][1]} ({len(jobs)} jobs)")
 
     # Per-cluster posterior-weighted combination: the kernel already
@@ -974,6 +943,7 @@ def _process_nested_section(
 
     clock.lap("combine", f"fused combine ({T} tasks)")
     return {
+        "gibbs_jobs": len(jobs),
         "meta": meta,
         "combined": combined,
         "n_sets": n_sets,
@@ -1084,8 +1054,7 @@ def batched_haplotype_transcripts_independent(
       each cluster's numpy stream and key chain where I3 and I2 left them.
 
     Returns ``phase_seconds``, ``scored_clusters`` (the posterior jobs of
-    phase I2), ``group_engine``, the full enumeration's host-engine
-    clusters and seconds, ``em_tasks`` and ``gibbs_jobs``."""
+    phase I2), ``group_engine``, ``em_tasks`` and ``gibbs_jobs``."""
     if not (supports_batched_nested(estimator) and not estimator.infer_collapsed):
         raise NotImplementedError("independent groups only (--ind-hap-inference)")
     estimator._columnar_outputs = None
@@ -1133,7 +1102,6 @@ def batched_haplotype_transcripts_independent(
 
     # Phase I2 (device): the group posteriors of every job; under
     # --use-hap-gibbs job gi of a cluster takes key gi of its chain.
-    fallback = dict(HOST_ENUMERATION)
     if estimator.use_group_post_gibbs:
         cis = sorted(cluster_groups)
         depth = max((len(cluster_groups[ci]) for ci in cis), default=0)
@@ -1147,7 +1115,6 @@ def batched_haplotype_transcripts_independent(
         )
     engine = _group_engine(estimator.group_size, estimator.use_group_post_gibbs)
     clock.lap("I2", engine)
-    fallback = _fallback_since(fallback)
 
     # Phase I3 (host): subset sampling from each cluster's numpy stream.
     cluster_tasks, all_tasks, key_base_of, np_rng_of = _sample_subsets(
@@ -1187,7 +1154,6 @@ def batched_haplotype_transcripts_independent(
         **clock.report(),
         "scored_clusters": len(jobs),
         "group_engine": engine,
-        **fallback,
         "em_tasks": len(all_tasks),
         "gibbs_jobs": gibbs_jobs,
     }
@@ -1745,7 +1711,6 @@ def _batched_strains_fused(
         **clock.report(),
         "route": "fused native",
         "em_tasks": len(covered_slots),
-        "device_em_tasks": 0,
         "gibbs_jobs": gibbs_jobs,
     }
 
@@ -1828,8 +1793,7 @@ def batched_haplotypes(
     dense diploid pair scoring over every cluster with selection on the
     host, and at any other ploidy the full enumeration.  Mutates the
     estimates in cluster_data in place; returns ``phase_seconds`` (A, B,
-    E), ``scored_clusters``, ``group_engine`` and the full enumeration's
-    host-engine clusters and seconds."""
+    E), ``scored_clusters`` and ``group_engine``."""
     if not supports_batched_haplotypes(estimator):
         raise NotImplementedError("only haplotypes is ported here")
     clock = _PhaseClock(device)
@@ -1845,7 +1809,6 @@ def batched_haplotypes(
         meta.append(ci)
     clock.lap("A", "probability matrices")
 
-    fallback = dict(HOST_ENUMERATION)
     if estimator.use_hap_gibbs:
         keys = prng.first_keys(rng_seed, [rank_of(ci) for ci in meta])
         results = path_group_posteriors_gibbs_batched(inputs, estimator.ploidy, keys, device)
@@ -1865,5 +1828,4 @@ def batched_haplotypes(
         **clock.report(),
         "scored_clusters": len(meta),
         "group_engine": engine,
-        **_fallback_since(fallback),
     }

@@ -322,7 +322,7 @@ def run_batched_em_packed(
             packed.starts.append(lo)
             packed.shards.append(shard)
             launched.append(em_cuda.em_fixed_point(tasks, max_em_its, max_rel_em_conv)[0])
-    autoshard.record([hi - lo for lo, hi in ranges])
+    autoshard.count_shards("em_tasks", [hi - lo for lo, hi in ranges])
     results = []
     for start, tasks, fracs in zip(packed.starts, packed.parts, launched):
         results.extend(fold_fractions(fracs, tasks, cluster_inputs[start : start + tasks.n_tasks]))
@@ -493,7 +493,7 @@ def dispatch_em_device(
                     (members, block_fracs) for (members, _, _), block_fracs in zip(items, fracs)
                 )
                 per_shard[s] += sum(len(members) for members, _, _ in items)
-    autoshard.record(per_shard)
+    autoshard.count_shards("em_tasks", per_shard)
     return pending
 
 

@@ -25,12 +25,18 @@ scored with its pair matrix's rows split over the shards
 (:func:`_pair_scores_sharded`, ``parallel/mesh.py``), as in the JAX
 package; with one shard it is scored in column blocks.  The host/device
 hybrid split of the JAX package is not ported.
+
+Counters of the run (:mod:`rpvg_tpu_torch.spans`): the clusters whose
+pair or group scores were computed, by device type
+(``posteriors.scored.cuda`` / ``.cpu``; the full enumeration's host
+engine counts under ``cpu``), the giant clusters of the shard route
+(``posteriors.sharded_pair_clusters``), and per data shard what it took
+(``shard.<s>.pair_clusters``, ``.group_clusters``, ``.sampled_clusters``).
 """
 
 from __future__ import annotations
 
 import math
-import time
 from itertools import combinations_with_replacement
 from typing import Dict, List, Sequence, Tuple
 
@@ -50,19 +56,6 @@ from rpvg_tpu_torch.infer.matrices import calc_path_log_frequencies
 from rpvg_tpu_torch.mathutils import num_permutations
 from rpvg_tpu_torch.parallel import autoshard
 
-# Clusters whose pair or group scores were computed, by device type,
-# since the last reset (a run can show where phase B ran).  Clusters of
-# the full enumeration's host engine count under "cpu".
-SCORED_CLUSTERS: Dict[str, int] = {"cuda": 0, "cpu": 0}
-
-# Clusters whose enumeration exceeded _FULL_ENUM_GROUP_LIMIT and ran the
-# per-cluster host engine, and its seconds, since the last reset.
-HOST_ENUMERATION: Dict[str, float] = {"clusters": 0, "seconds": 0.0}
-
-# Giant clusters scored with their pair rows split over the data shards
-# (_pair_scores_sharded), since the last reset.
-SHARDED_PAIR_CLUSTERS = 0
-
 # Memory guard: (R, P, P) tensors above this many elements score in
 # column blocks (the reference's giant-cluster branch-and-bound is the
 # serial analogue; blocking keeps the dense formulation).
@@ -70,10 +63,6 @@ _PAIR_TENSOR_ELEMENT_LIMIT = 1 << 27
 
 # Element bound of one padded (B, R, P, P) batch.
 _BATCH_ELEMENT_LIMIT = 1 << 24
-
-
-def _count_scored(device: torch.device, n: int) -> None:
-    SCORED_CLUSTERS[device.type] = SCORED_CLUSTERS.get(device.type, 0) + n
 
 
 def _normalize_log_posteriors(log_posteriors: np.ndarray) -> np.ndarray:
@@ -158,8 +147,8 @@ def _pair_scores_sharded(probs, noise, counts, log_freqs, device: torch.device):
     (``parallel/mesh.sharded_diploid_scores``), so each shard holds
     1/n of the (R, P, P) tensor.  None when there is one shard or the
     tensor passes the element guard times the shard count (the JAX
-    package's condition, ``rpvg_tpu/infer/posteriors.py:140-145``)."""
-    global SHARDED_PAIR_CLUSTERS
+    package's condition, ``rpvg_tpu/infer/posteriors.py:140-145``).
+    Counted in ``posteriors.sharded_pair_clusters``."""
     from rpvg_tpu_torch.parallel.mesh import make_mesh, sharded_diploid_scores
 
     devices = autoshard.data_devices(device)
@@ -175,7 +164,7 @@ def _pair_scores_sharded(probs, noise, counts, log_freqs, device: torch.device):
     scores = sharded_diploid_scores(make_mesh(devices, data=1, model=n))(
         probs_pad, noise, counts, freqs_pad
     )
-    SHARDED_PAIR_CLUSTERS += 1
+    spans.count("posteriors.sharded_pair_clusters")
     return scores.cpu().numpy()[:P, :P]
 
 
@@ -262,7 +251,7 @@ def path_group_posteriors_diploid(
     carry zero posterior and are dropped from the reported group sets."""
     log_freqs = calc_path_log_frequencies(path_counts)
     groups, log_liks = _diploid_log_likelihoods(probs, noise, counts, log_freqs, device)
-    _count_scored(device, 1)
+    spans.count(f"posteriors.scored.{device.type}", 1)
 
     max_ll = log_liks.max()
     keep = log_liks - max_ll >= math.log(min_rel_likelihood)
@@ -335,7 +324,7 @@ def _score_chunks(cluster_inputs, buckets, devices: Sequence[torch.device]):
                 torch.from_numpy(counts_pad).to(device),
                 torch.from_numpy(log_freqs_pad).to(device),
             )
-            _count_scored(pair_ll_dev.device, B)
+            spans.count(f"posteriors.scored.{pair_ll_dev.device.type}", B)
             yield chunk, pair_ll_dev, shard
 
 
@@ -433,7 +422,7 @@ def diploid_posteriors_batched(
     if device.type == "cpu":
         native_results = _diploid_posteriors_native(cluster_inputs, min_rel_likelihood)
         if native_results is not None:
-            _count_scored(device, len(cluster_inputs))
+            spans.count(f"posteriors.scored.{device.type}", len(cluster_inputs))
             return native_results
     buckets, giant_idx = _bucket_plan(cluster_inputs)
     results = [None] * len(cluster_inputs)
@@ -446,7 +435,7 @@ def diploid_posteriors_batched(
         for b, idx in enumerate(chunk):
             P = cluster_inputs[idx][0].shape[1]
             select_jobs.append((idx, pair_ll[b, :P, :P]))
-    autoshard.record(per_shard)
+    autoshard.count_shards("pair_clusters", per_shard)
 
     # Giant clusters: per-cluster sharded or blocked scoring.
     for idx in giant_idx:
@@ -588,7 +577,7 @@ def full_posteriors_batched(cluster_inputs, group_size: int, device: torch.devic
     the group prior and the normalisation on the host in float64.  A
     cluster whose padded enumeration comb(P_pad + k - 1, k) exceeds
     ``_FULL_ENUM_GROUP_LIMIT`` runs :func:`path_group_posteriors_full` on
-    the host instead (counted in ``HOST_ENUMERATION``).
+    the host instead.
 
     Spans (:mod:`rpvg_tpu_torch.spans`), each entered once a call:
     ``rpvg.groups.host_enum`` (the limit's check, and the host engine's
@@ -609,7 +598,6 @@ def full_posteriors_batched(cluster_inputs, group_size: int, device: torch.devic
 
     results = [None] * len(cluster_inputs)
     scored = []
-    t0 = time.perf_counter()
     with spans.Span("rpvg.groups.host_enum"):
         for ci, (probs, noise, counts, path_counts) in enumerate(cluster_inputs):
             P_pad = _ceil_pow2(probs.shape[1])
@@ -617,11 +605,9 @@ def full_posteriors_batched(cluster_inputs, group_size: int, device: torch.devic
                 results[ci] = path_group_posteriors_full(
                     probs, noise, counts, path_counts, group_size
                 )
-                HOST_ENUMERATION["clusters"] += 1
-                _count_scored(torch.device("cpu"), 1)
+                spans.count("posteriors.scored.cpu")
             else:
                 scored.append(ci)
-    HOST_ENUMERATION["seconds"] += time.perf_counter() - t0
     shapes = [cluster_inputs[ci][0].shape for ci in scored]
     work = [(R, math.comb(P + group_size - 1, group_size)) for R, P in shapes]
     for name, n in (
@@ -651,8 +637,8 @@ def full_posteriors_batched(cluster_inputs, group_size: int, device: torch.devic
                 launched.append(
                     (scored[lo:hi], clusters, group_scores_cuda.group_scores(clusters))
                 )
-                _count_scored(shard_device, hi - lo)
-        autoshard.record([hi - lo for lo, hi in ranges])
+                spans.count(f"posteriors.scored.{shard_device.type}", hi - lo)
+        autoshard.count_shards("group_clusters", [hi - lo for lo, hi in ranges])
     with spans.Span("rpvg.groups.wait"):
         read_back = [scores.cpu().numpy() for _, _, scores in launched]
     with spans.Span("rpvg.groups.finish"):
@@ -916,7 +902,7 @@ def posterior_gibbs_jobs(cluster_inputs, rng_keys, device: torch.device):
         log_freqs_pad = np.full(P_pad, -np.inf)
         log_freqs_pad[:P] = calc_path_log_frequencies(path_counts)
         scores = _pair_scores_blocked(probs_pad, noise_pad, counts_pad, log_freqs_pad, device)
-        _count_scored(device, 1)
+        spans.count(f"posteriors.scored.{device.type}", 1)
         pieces.append(torch.from_numpy(np.ascontiguousarray(scores[:P, :P])).to(device).reshape(-1))
         offsets[idx] = base
         strides[idx] = P
@@ -1005,7 +991,7 @@ def path_group_posteriors_gibbs_batched(cluster_inputs, group_size, rng_keys, de
         else:
             jobs = posterior_gibbs_jobs(cluster_inputs[lo:hi], rng_keys[lo:hi], shard_device)
             launched.append((jobs, posterior_gibbs_cuda.posterior_gibbs(jobs)))
-    autoshard.record([hi - lo for lo, hi in ranges])
+    autoshard.count_shards("sampled_clusters", [hi - lo for lo, hi in ranges])
     results = []
     for jobs, samples in launched:
         samples = samples.cpu().numpy()

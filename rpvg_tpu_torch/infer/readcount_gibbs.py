@@ -196,7 +196,7 @@ def run_batched_gibbs(
         )
         launched.append((members, jobs, gibbs_cuda.gibbs_read_counts(jobs, thin_its, gamma)))
         per_shard[shard] = members.size
-    autoshard.record(per_shard)
+    autoshard.count_shards("gibbs_jobs", per_shard)
     results = [None] * n
     for members, jobs, out in launched:
         out = out.cpu().numpy()

@@ -26,15 +26,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rpvg_tpu_torch import spans
 from rpvg_tpu_torch.infer.em import _em_solve_batched
 from rpvg_tpu_torch.ops import build
-
-# Kernel launches, and tasks they covered, since the last reset (a run
-# can show that the main path went through the kernel).  Only a kernel
-# launch adds to them; one call may make several launches (one per team
-# size), and each task is in exactly one.
-LAUNCHES = 0
-TASKS = 0
 
 KERNEL_NAME = "em_fixed_point"
 # Shared memory one block may have on an H100 (227 KB).
@@ -334,7 +328,8 @@ def run_launches(
 
 
 def _launch(tasks: RaggedTasks, max_em_its: int, max_rel_em_conv: float):
-    global LAUNCHES, TASKS
+    """The kernel on ``tasks``; counts its launches (one per team size)
+    and tasks in the run's ``em.ragged.launches`` / ``.tasks``."""
     _check_inputs(tasks)
     device = tasks.device
     n = tasks.n_tasks
@@ -362,8 +357,8 @@ def _launch(tasks: RaggedTasks, max_em_its: int, max_rel_em_conv: float):
         )
 
     run_launches(KERNEL_NAME, launches, launch_task_ids(launches, device), call)
-    LAUNCHES += len(launches)
-    TASKS += n
+    spans.count("em.ragged.launches", len(launches))
+    spans.count("em.ragged.tasks", n)
     return fracs, iters
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from rpvg_tpu_torch.infer.em import _em_solve_batched
+from rpvg_tpu_torch import spans
 from rpvg_tpu_torch.ops import build
 from rpvg_tpu_torch.ops.em_cuda import (
     launch_task_ids,
@@ -35,14 +36,6 @@ from rpvg_tpu_torch.ops.em_cuda import (
     sum_layouts,
     to_device,
 )
-
-# Kernel launches, the padded clusters they covered, and the blocks
-# (padded buckets) of the calls that made them, since the last reset.
-# Only the kernel route adds to them; one call makes one launch per team
-# size, and each cluster is in exactly one.
-LAUNCHES = 0
-TASKS = 0
-BLOCKS = 0
 
 KERNEL_NAME = "em_fused"
 _fn = None
@@ -134,7 +127,9 @@ def cluster_extents(blocks) -> np.ndarray:
 
 
 def _launch(blocks: Sequence[Block], max_em_its: int, max_rel_em_conv: float, extents=None):
-    global LAUNCHES, TASKS, BLOCKS
+    """The kernel on ``blocks``; counts its launches (one per team size),
+    padded clusters and blocks in the run's ``em.padded.launches`` /
+    ``.tasks`` / ``.blocks``."""
     device = blocks[0][0].device
     _check_blocks(blocks, device)
     shapes = np.array([p.shape for p, _, _ in blocks], dtype=np.int64).reshape(-1, 3)
@@ -178,9 +173,9 @@ def _launch(blocks: Sequence[Block], max_em_its: int, max_rel_em_conv: float, ex
             )
 
         run_launches(KERNEL_NAME, launches, launch_task_ids(launches, device), call)
-        LAUNCHES += len(launches)
-        TASKS += n_clusters
-        BLOCKS += len(blocks)
+        spans.count("em.padded.launches", len(launches))
+        spans.count("em.padded.tasks", n_clusters)
+        spans.count("em.padded.blocks", len(blocks))
     return (
         [fracs[col_off[k] : col_off[k + 1]].view(int(B[k]), int(C[k])) for k in range(len(blocks))],
         [iters[cluster_off[k] : cluster_off[k + 1]] for k in range(len(blocks))],

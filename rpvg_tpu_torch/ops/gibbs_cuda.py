@@ -29,7 +29,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from rpvg_tpu_torch import prng
+from rpvg_tpu_torch import prng, spans
 from rpvg_tpu_torch.ops import build
 from rpvg_tpu_torch.ops.em_cuda import (
     SMEM_LIMIT,
@@ -39,12 +39,6 @@ from rpvg_tpu_torch.ops.em_cuda import (
     run_launches,
     to_device,
 )
-
-# Kernel launches, and jobs they covered, since the last reset.  Only a
-# kernel launch adds to them; one call makes one launch per (team size,
-# CTAs, staged), and each job is in exactly one.
-LAUNCHES = 0
-JOBS = 0
 
 KERNEL_NAME = "gibbs_readcount"
 _TEAMS = (32, 64, 128, 256, 512)
@@ -263,7 +257,9 @@ def _check_jobs(jobs: GibbsJobs) -> None:
 
 
 def _launch(jobs: GibbsJobs, thin_its: int, gamma: float) -> torch.Tensor:
-    global LAUNCHES, JOBS
+    """The kernel on ``jobs``; counts its launches (one per (team size,
+    CTAs, staged)) and jobs in the run's ``gibbs.readcount.launches`` /
+    ``.jobs``."""
     _check_jobs(jobs)
     if int(jobs.host_samples.max(initial=0)) * int(thin_its) >= 2**32:
         raise ValueError("gibbs_read_counts: more iterations than a 32-bit counter holds")
@@ -311,8 +307,8 @@ def _launch(jobs: GibbsJobs, thin_its: int, gamma: float) -> torch.Tensor:
         )
 
     run_launches(KERNEL_NAME, launches, launch_task_ids(launches, device), call)
-    LAUNCHES += len(launches)
-    JOBS += int(active.size)
+    spans.count("gibbs.readcount.launches", len(launches))
+    spans.count("gibbs.readcount.jobs", int(active.size))
     return out
 
 # ------------------------------------------------------------ plain version

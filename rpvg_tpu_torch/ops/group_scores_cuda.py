@@ -36,15 +36,10 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from rpvg_tpu_torch import spans
 from rpvg_tpu_torch.infer.posteriors import _ceil_pow2, _ceil_pow4, _log_or_neg_inf
 from rpvg_tpu_torch.ops import build
 from rpvg_tpu_torch.ops.em_cuda import concat_to_device, offsets as _offsets, to_device
-
-# Kernel launches (a call launches two grids, the pre-pass and the
-# scoring grid, each counted), and clusters they covered, since the last
-# reset.  Only a kernel launch adds to them.
-LAUNCHES = 0
-CLUSTERS = 0
 
 KERNEL_NAME = "group_scores"
 # Warps per block of the scoring grid (csrc/group_scores.cu kWarps): 256 /
@@ -281,7 +276,9 @@ def _arguments(clusters: GroupClusters) -> tuple:
 
 
 def _launch(clusters: GroupClusters) -> torch.Tensor:
-    global LAUNCHES, CLUSTERS
+    """The kernel on ``clusters``; counts in the run its grids (the
+    pre-pass and the scoring grid, each counted) as ``groups.launches``
+    and the clusters they cover as ``groups.kernel_clusters``."""
     host = clusters.host
     device = clusters.device
     out = torch.empty(int(host["out_offsets"][-1]), dtype=torch.float64, device=device)
@@ -292,8 +289,8 @@ def _launch(clusters: GroupClusters) -> torch.Tensor:
         rc = _kernel_fn()(*args, out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{KERNEL_NAME} kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 2 if host["word_cluster"].size else 1
-    CLUSTERS += clusters.n_clusters
+    spans.count("groups.launches", 2 if host["word_cluster"].size else 1)
+    spans.count("groups.kernel_clusters", clusters.n_clusters)
     return out
 
 

@@ -24,6 +24,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from rpvg_tpu_torch import spans
 from rpvg_tpu_torch.ops import build
 from rpvg_tpu_torch.ops.em_cuda import (
     SMEM_LIMIT,
@@ -33,11 +34,6 @@ from rpvg_tpu_torch.ops.em_cuda import (
     to_device,
 )
 from rpvg_tpu_torch.ops.gibbs_cuda import uniforms
-
-# Kernel launches, and clusters they covered, since the last reset.  Only
-# a kernel launch adds to them.
-LAUNCHES = 0
-CLUSTERS = 0
 
 KERNEL_NAME = "gibbs_posterior"
 # Threads of a block (csrc/gibbs_posterior.cu kThreads: 8 warps); the
@@ -243,7 +239,8 @@ def _arguments(jobs: PosteriorJobs) -> List[tuple]:
 
 
 def _launch(jobs: PosteriorJobs) -> torch.Tensor:
-    global LAUNCHES, CLUSTERS
+    """The kernel on ``jobs``; counts its launches and clusters in the
+    run's ``gibbs.pair.launches`` / ``.clusters``."""
     out = torch.empty(int(jobs.host["out_offsets"][-1]), dtype=torch.int32, device=jobs.device)
     if jobs.n_clusters == 0:
         return out
@@ -254,8 +251,8 @@ def _launch(jobs: PosteriorJobs) -> torch.Tensor:
         return _kernel_fn()(*head, clusters, *tail, out.data_ptr(), stream)
 
     run_launches(KERNEL_NAME, jobs.launches, jobs.block_clusters, call)
-    LAUNCHES += len(jobs.launches)
-    CLUSTERS += jobs.n_clusters
+    spans.count("gibbs.pair.launches", len(jobs.launches))
+    spans.count("gibbs.pair.clusters", jobs.n_clusters)
     return out
 
 

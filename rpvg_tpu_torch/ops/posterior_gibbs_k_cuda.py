@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from rpvg_tpu_torch.infer.posteriors import _ceil_pow2
+from rpvg_tpu_torch import spans
 from rpvg_tpu_torch.ops import build
 from rpvg_tpu_torch.ops.em_cuda import (
     SMEM_LIMIT,
@@ -56,11 +57,6 @@ from rpvg_tpu_torch.ops.em_cuda import (
     to_device,
 )
 from rpvg_tpu_torch.ops.gibbs_cuda import uniforms
-
-# Kernel launches, and clusters they covered, since the last reset.  Only
-# a kernel launch adds to them.
-LAUNCHES = 0
-CLUSTERS = 0
 
 KERNEL_NAME = "gibbs_posterior_k"
 # A chain's team by its cluster's logs per slot step, R + nonzeros: the
@@ -379,7 +375,8 @@ def _check(jobs: KSlotJobs) -> None:
 
 
 def _launch(jobs: KSlotJobs) -> torch.Tensor:
-    global LAUNCHES, CLUSTERS
+    """The kernel on ``jobs``; counts its launches and clusters in the
+    run's ``gibbs.kslot.launches`` / ``.clusters``."""
     _check(jobs)
     device = jobs.device
     out = torch.empty(int(jobs.host["out_offsets"][-1]), dtype=torch.int32, device=device)
@@ -402,8 +399,8 @@ def _launch(jobs: KSlotJobs) -> torch.Tensor:
         )
 
     run_launches(KERNEL_NAME, jobs.launches, jobs.chain_ids, call)
-    LAUNCHES += len(jobs.launches)
-    CLUSTERS += jobs.n_clusters
+    spans.count("gibbs.kslot.launches", len(jobs.launches))
+    spans.count("gibbs.kslot.clusters", jobs.n_clusters)
     return out
 
 # ------------------------------------------------------------ plain version

@@ -23,9 +23,8 @@ kernel, on its own tasks, that one device would run on all of them.
   counterpart of XLA's ``--xla_force_host_platform_device_count``: the
   shard logic then runs on one CPU or one GPU, with the real kernels.
 
-Each dispatch records how many tasks or clusters each shard took
-(:func:`record`); the phase clock of ``infer/batched_models.py`` reads
-them back per phase (:func:`take_shard_work`).
+Each dispatch adds what each shard took to the run's counters
+``shard.<s>.<items>`` (:func:`count_shards`, :mod:`rpvg_tpu_torch.spans`).
 """
 
 from __future__ import annotations
@@ -38,11 +37,10 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rpvg_tpu_torch import spans
+
 # (device type, shard count) while virtual_devices is active.
 _VIRTUAL: Optional[Tuple[str, int]] = None
-
-# Per dispatch since the last take_shard_work(): the items each shard took.
-_SHARD_WORK: List[List[int]] = []
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,15 +133,9 @@ def shard_tasks(shapes, n: int) -> List[Tuple[int, int]]:
     return [(bounds[s], bounds[s + 1]) for s in range(n)]
 
 
-def record(counts: Sequence[int]) -> None:
-    """Note the tasks or clusters each shard of one dispatch took."""
-    _SHARD_WORK.append([int(c) for c in counts])
-
-
-def take_shard_work() -> List[int]:
-    """Per shard, the items of every dispatch recorded since the last
-    call (an unsplit dispatch counts on shard 0); clears the record."""
-    work = list(_SHARD_WORK)
-    _SHARD_WORK.clear()
-    width = max((len(w) for w in work), default=0)
-    return [sum(w[s] for w in work if s < len(w)) for s in range(width)]
+def count_shards(items: str, counts: Sequence[int]) -> None:
+    """Add the ``items`` (tasks, jobs, clusters) each shard of one dispatch
+    took to the run's counter ``shard.<s>.<items>`` (an unsplit dispatch
+    counts on shard 0)."""
+    for s, n in enumerate(counts):
+        spans.count(f"shard.{s}.{items}", int(n))

@@ -1,7 +1,8 @@
 """Seeded EM task sets shaped like the main path's phase D, read-count
 Gibbs jobs on them, clusters for the posterior samplers and for the full
 group enumeration, for holding the kernels against their plain versions
-(tests and ``chip_smoke.py``).
+(tests and ``chip_smoke.py``); :func:`counted`, the counters of a block,
+and :func:`shard_counts`, what each data shard took in a run.
 
 Each task is a noise-normalised matrix (R, C) whose last column is the
 noise probability, with integral read counts (R,), as phase C emits
@@ -11,10 +12,14 @@ median 3, at most 348; columns: median 9, at most 61).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
+
+from rpvg_tpu_torch import spans
 
 Task = Tuple[np.ndarray, np.ndarray]
 
@@ -217,3 +222,29 @@ def gibbs_jobs_on(inputs: List[GibbsJob], device, samples, seed: int):
         tasks, np.arange(len(inputs)), [initial_fractions(item) for item in inputs],
         [prng.key_seed(key) for key in keys], samples,
     )
+
+
+@contextlib.contextmanager
+def counted() -> Iterator[collections.Counter]:
+    """The counters of a run opened around the block
+    (:mod:`rpvg_tpu_torch.spans`), filled in when it ends; a counter the
+    run never added to reads 0.  Inside a run already open on the thread
+    the block would count into that run, so that raises RuntimeError."""
+    if spans.current_run() is not None:
+        raise RuntimeError("counted() inside an open run: the block's counters are that run's")
+    counters = collections.Counter()
+    with spans.RunSpan("rpvg.counted") as run:
+        yield counters
+    counters.update(run.run.counters)
+
+
+def shard_counts(counters, items: str = "") -> List[int]:
+    """Per data shard, its counters ``shard.<s>.<items>`` of a run's
+    ``counters`` (``parallel/autoshard.count_shards``), every kind of item
+    summed when ``items`` is empty."""
+    per_shard = collections.Counter()
+    for name, n in counters.items():
+        parts = name.split(".")
+        if parts[0] == "shard" and (not items or parts[2] == items):
+            per_shard[int(parts[1])] += n
+    return [per_shard[s] for s in range(max(per_shard, default=-1) + 1)]

@@ -18,7 +18,7 @@ from rpvg_tpu.infer import posteriors as ref_post
 from rpvg_tpu_torch import alignments, cli
 from rpvg_tpu_torch.io import rpa
 from rpvg_tpu_torch.infer import posteriors
-from rpvg_tpu_torch.testing import posterior_cluster_set
+from rpvg_tpu_torch.testing import counted, posterior_cluster_set
 
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -30,10 +30,10 @@ STAGED = {"RPVG_TPU_FUSED_NESTED": "0", "RPVG_TPU_FUSED_STRAINS": "0"}
 @pytest.mark.parametrize("min_rel", [1e-8, 1e-3])
 def test_cpu_pair_posteriors_bitwise_equal_to_reference(min_rel):
     clusters = posterior_cluster_set(200, seed=3)
-    before = posteriors.SCORED_CLUSTERS["cpu"]
-    port = posteriors.diploid_posteriors_batched(clusters, min_rel, CPU)
+    with counted() as counts:
+        port = posteriors.diploid_posteriors_batched(clusters, min_rel, CPU)
     ref = ref_post.diploid_posteriors_batched(clusters, min_rel)
-    assert posteriors.SCORED_CLUSTERS["cpu"] == before + len(clusters)
+    assert counts["posteriors.scored.cpu"] == len(clusters)
     assert len(port) == len(ref) == 200
     for (p_groups, p_post), (r_groups, r_post) in zip(port, ref):
         assert [list(g) for g in p_groups] == [list(g) for g in r_groups]

@@ -11,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from rpvg_tpu_torch import prng
+from rpvg_tpu_torch import prng, spans
 from rpvg_tpu_torch.infer import batching, posteriors, readcount_gibbs
 from rpvg_tpu_torch.infer.batching import fold_fractions, pack_ragged, run_batched_em
 from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda, gibbs_cuda, posterior_gibbs_cuda
 from rpvg_tpu_torch.testing import (
+    counted,
     edge_case_tasks,
     em_task_set,
     gibbs_edge_jobs,
@@ -46,13 +47,14 @@ def _folded(fracs, tasks, task_list):
 def test_kernel_matches_plain(cuda, max_its):
     task_list = em_task_set(512, seed=31)
     tasks = pack_ragged(task_list, cuda)
-    launches, n_tasks = em_cuda.LAUNCHES, em_cuda.TASKS
     planned = len(em_cuda.plan_launches(tasks.shapes[:, 0], tasks.shapes[:, 1]))
-    k_fracs, k_iters = em_cuda.em_fixed_point(tasks, max_its, 1e-3)
-    assert em_cuda.LAUNCHES == launches + planned
-    p_fracs, p_iters = em_cuda.em_fixed_point_plain(tasks, max_its, 1e-3)
+    with counted() as counts:
+        k_fracs, k_iters = em_cuda.em_fixed_point(tasks, max_its, 1e-3)
+    with counted() as plain_counts:
+        p_fracs, p_iters = em_cuda.em_fixed_point_plain(tasks, max_its, 1e-3)
     torch.cuda.synchronize()
-    assert (em_cuda.LAUNCHES, em_cuda.TASKS) == (launches + planned, n_tasks + len(task_list))
+    assert (counts["em.ragged.launches"], counts["em.ragged.tasks"]) == (planned, len(task_list))
+    assert not plain_counts
     kernel = _folded(k_fracs, tasks, task_list)
     plain = _folded(p_fracs, tasks, task_list)
     np.testing.assert_allclose(kernel, plain, rtol=1e-6, atol=1e-9)
@@ -68,9 +70,9 @@ def test_kernel_is_deterministic(cuda):
 
 def test_run_batched_em_on_cuda_matches_cpu(cuda):
     task_list = em_task_set(128, seed=33)
-    tasks_before = em_cuda.TASKS
-    port = run_batched_em(task_list, 10000, 1e-3, cuda)
-    assert em_cuda.TASKS == tasks_before + len(task_list)
+    with counted() as counts:
+        port = run_batched_em(task_list, 10000, 1e-3, cuda)
+    assert counts["em.ragged.tasks"] == len(task_list)
     on_cpu = run_batched_em(task_list, 10000, 1e-3, torch.device("cpu"))
     for (p_counts, p_noise), (n_counts, n_noise) in zip(port, on_cpu):
         np.testing.assert_allclose(p_counts, n_counts, rtol=1e-6, atol=1e-9)
@@ -86,9 +88,9 @@ def test_pair_scores_on_cuda_match_cpu(cuda):
             (probs, rng.uniform(1e-4, 0.2, R), rng.integers(1, 9, R).astype(float),
              rng.integers(1, 4, P).tolist())
         )
-    before = posteriors.SCORED_CLUSTERS["cuda"]
-    on_cuda = posteriors.diploid_posteriors_batched(clusters, 1e-3, cuda)
-    assert posteriors.SCORED_CLUSTERS["cuda"] == before + len(clusters)
+    with counted() as counts:
+        on_cuda = posteriors.diploid_posteriors_batched(clusters, 1e-3, cuda)
+    assert counts["posteriors.scored.cuda"] == len(clusters)
     on_cpu = posteriors.diploid_posteriors_batched(clusters, 1e-3, torch.device("cpu"))
     for (g_cuda, p_cuda), (g_cpu, p_cpu) in zip(on_cuda, on_cpu):
         assert g_cuda == g_cpu
@@ -218,13 +220,13 @@ def test_fused_kernel_is_deterministic(cuda, monkeypatch):
 
 def test_fused_kernel_one_call_over_shaped_blocks_with_dummy(cuda):
     blocks = [tuple(torch.from_numpy(a).to(cuda) for a in b) for b in padded_block_set(38)]
-    launches, n_blocks, tasks = em_fused_cuda.LAUNCHES, em_fused_cuda.BLOCKS, em_fused_cuda.TASKS
     extents = em_fused_cuda.cluster_extents(blocks)
     planned = len(em_cuda.plan_launches(extents[:, 0], extents[:, 1]))
-    k_fracs, k_iters = em_fused_cuda.em_fixed_point_padded(blocks, 10000, 1e-3)
-    assert em_fused_cuda.LAUNCHES == launches + planned
-    assert em_fused_cuda.BLOCKS == n_blocks + len(blocks)
-    assert em_fused_cuda.TASKS == tasks + sum(b[0].shape[0] for b in blocks)
+    with counted() as counts:
+        k_fracs, k_iters = em_fused_cuda.em_fixed_point_padded(blocks, 10000, 1e-3)
+    assert counts["em.padded.launches"] == planned
+    assert counts["em.padded.blocks"] == len(blocks)
+    assert counts["em.padded.tasks"] == sum(b[0].shape[0] for b in blocks)
     p_fracs, p_iters = em_fused_cuda.em_fixed_point_padded_plain(blocks, 10000, 1e-3)
     for k, p, ki, pi in zip(k_fracs, p_fracs, k_iters, p_iters):
         np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(), rtol=1e-6, atol=1e-9)
@@ -277,13 +279,13 @@ def test_transcripts_slice_on_cuda_matches_cpu(cuda, fuse, tmp_path, monkeypatch
     graph, paths = str(tmp_path / "graph.json"), str(tmp_path / "panel.json")
     panel.write_graph_json(graph)
     panel.write_panel_json(paths)
-    launches = em_fused_cuda.LAUNCHES if fuse == "1" else em_cuda.LAUNCHES
     for backend in ("cuda", "cpu"):
         argv = ["-g", graph, "-p", paths, "-a", aln, "-o", str(tmp_path / backend),
                 "-i", "transcripts", "-r", "99", "--score-not-qual", "--backend", backend]
         assert cli.main(argv) == 0
-    after = em_fused_cuda.LAUNCHES if fuse == "1" else em_cuda.LAUNCHES
-    assert after > launches
+        if backend == "cuda":
+            counters = spans.recent_runs(1)[0]["counters"]
+    assert counters.get("em.padded.launches" if fuse == "1" else "em.ragged.launches", 0) > 0
     report = compare_estimate_files(
         os.path.join(tmp_path, "cuda.txt"), os.path.join(tmp_path, "cpu.txt"), 1e-6, 1e-6
     )
@@ -321,12 +323,14 @@ def test_gibbs_readcount_kernel_matches_plain(cuda, case):
         assert [(lc.ctas, lc.staged) for lc in plan] == [(1, False), (1, True)]
     if case == "cluster":
         assert [(lc.ctas, lc.staged) for lc in plan] == [(4, True), (1, True)]
-    launches, n_jobs = gibbs_cuda.LAUNCHES, gibbs_cuda.JOBS
-    kernel = gibbs_cuda.gibbs_read_counts(jobs, 5, 1.0)
+    with counted() as counts:
+        kernel = gibbs_cuda.gibbs_read_counts(jobs, 5, 1.0)
     torch.cuda.synchronize()
-    assert (gibbs_cuda.LAUNCHES, gibbs_cuda.JOBS) == (launches + len(plan), n_jobs + len(inputs))
-    plain = gibbs_cuda.gibbs_read_counts_plain(jobs, 5, 1.0)
-    assert gibbs_cuda.LAUNCHES == launches + len(plan)
+    assert (counts["gibbs.readcount.launches"], counts["gibbs.readcount.jobs"]) == (
+        len(plan), len(inputs))
+    with counted() as plain_counts:
+        plain = gibbs_cuda.gibbs_read_counts_plain(jobs, 5, 1.0)
+    assert not plain_counts
     np.testing.assert_allclose(kernel.cpu().numpy(), plain.cpu().numpy(), rtol=1e-9, atol=0)
     assert bool(torch.isfinite(kernel).all())
 
@@ -416,10 +420,10 @@ def test_gibbs_posterior_kernel_matches_plain(cuda, case):
         assert posterior_gibbs_cuda.table_bytes(200) > posterior_gibbs_cuda.SMEM_LIMIT
     if case == "packed":
         assert max(np.diff(jobs.host["block_starts"][0])) >= 8
-    launches = posterior_gibbs_cuda.LAUNCHES
-    kernel = posterior_gibbs_cuda.posterior_gibbs(jobs)
+    with counted() as counts:
+        kernel = posterior_gibbs_cuda.posterior_gibbs(jobs)
     torch.cuda.synchronize()
-    assert posterior_gibbs_cuda.LAUNCHES == launches + len(plan)
+    assert counts["gibbs.pair.launches"] == len(plan)
     plain = posterior_gibbs_cuda.posterior_gibbs_plain(jobs)
     assert torch.equal(kernel.cpu(), plain.cpu())
 
@@ -429,16 +433,15 @@ def test_gibbs_samplers_on_cuda_route(cuda):
     normalised results."""
     inputs = gibbs_job_set(16, seed=50)
     keys = list(prng.split(prng.prng_key(2), len(inputs)))
-    jobs_before = gibbs_cuda.JOBS
-    results = readcount_gibbs.run_batched_gibbs(inputs, keys, 4, 3, 1.0, cuda)
-    assert gibbs_cuda.JOBS == jobs_before + len(inputs)
+    with counted() as counts:
+        results = readcount_gibbs.run_batched_gibbs(inputs, keys, 4, 3, 1.0, cuda)
+    assert counts["gibbs.readcount.jobs"] == len(inputs)
     for item, (noise, paths) in zip(inputs, results):
         np.testing.assert_allclose(noise + paths.sum(axis=1), item[4], rtol=1e-9)
     clusters = posterior_cluster_set(10, seed=51)
-    before = posterior_gibbs_cuda.CLUSTERS, posteriors.SCORED_CLUSTERS["cuda"]
-    post = posteriors.path_group_posteriors_gibbs_batched(clusters, 2, keys[:10], cuda)
-    assert posterior_gibbs_cuda.CLUSTERS == before[0] + 10
-    assert posteriors.SCORED_CLUSTERS["cuda"] == before[1] + 10
+    with counted() as counts:
+        post = posteriors.path_group_posteriors_gibbs_batched(clusters, 2, keys[:10], cuda)
+    assert counts["gibbs.pair.clusters"] == counts["posteriors.scored.cuda"] == 10
     for groups, freqs in post:
         assert abs(float(np.sum(freqs)) - 1.0) < 1e-12
         assert all(a <= b for a, b in groups)
@@ -458,11 +461,10 @@ def test_group_scores_kernel_matches_plain(cuda, k):
 
     clusters = enumeration_cluster_set(40, seed=60 + k, group_size=k)
     packed = group_scores_cuda.make_clusters([c[:3] for c in clusters], k, cuda)
-    launches, n = group_scores_cuda.LAUNCHES, group_scores_cuda.CLUSTERS
-    kernel = group_scores_cuda.group_scores(packed)
+    with counted() as counts:
+        kernel = group_scores_cuda.group_scores(packed)
     torch.cuda.synchronize()
-    assert group_scores_cuda.LAUNCHES == launches + 2
-    assert group_scores_cuda.CLUSTERS == n + len(clusters)
+    assert (counts["groups.launches"], counts["groups.kernel_clusters"]) == (2, len(clusters))
     plain = group_scores_cuda.group_scores_ragged_plain(packed)
     kernel, plain = kernel.cpu().numpy(), plain.cpu().numpy()
     assert np.array_equal(np.isneginf(kernel), np.isneginf(plain)) and np.isneginf(plain).any()
@@ -563,8 +565,6 @@ def test_ploidy_3_cli_on_cuda(cuda, model, gibbs, tmp_path):
 
     from rpvg_tpu_torch import cli, sim
     from rpvg_tpu_torch.compare import compare_estimate_files
-    from rpvg_tpu_torch.ops import group_scores_cuda, posterior_gibbs_k_cuda
-
     panel = sim.build_gene_panel(
         num_genes=5, isoforms_per_gene=3, num_haplotypes=4,
         exons_per_gene=5, exon_length=100, variant_sites=3, seed=61,
@@ -578,8 +578,6 @@ def test_ploidy_3_cli_on_cuda(cuda, model, gibbs, tmp_path):
     panel.write_graph_json(files["graph.json"])
     panel.write_panel_json(files["panel.json"])
     panel.write_info_tsv(files["info.tsv"])
-    counter = posterior_gibbs_k_cuda if gibbs else group_scores_cuda
-    before = counter.LAUNCHES, em_cuda.LAUNCHES
     for backend in ("cuda", "cpu"):
         argv = ["-g", files["graph.json"], "-p", files["panel.json"], "-a", files["aln.json"],
                 "-o", str(tmp_path / backend), "-i", model, "-y", "3", "-r", "5",
@@ -587,9 +585,11 @@ def test_ploidy_3_cli_on_cuda(cuda, model, gibbs, tmp_path):
         argv += ["-f", files["info.tsv"]] if model == "haplotype-transcripts" else []
         argv += ["--use-hap-gibbs"] if gibbs else []
         assert cli.main(argv) == 0
-    assert counter.LAUNCHES > before[0]
+        if backend == "cuda":
+            counters = spans.recent_runs(1)[0]["counters"]
+    assert counters.get("gibbs.kslot.launches" if gibbs else "groups.launches", 0) > 0
     if model == "haplotype-transcripts":
-        assert em_cuda.LAUNCHES > before[1]
+        assert counters.get("em.ragged.launches", 0) > 0
     if not gibbs:
         suffixes = (".txt", "_joint.txt") if model == "haplotype-transcripts" else (".txt",)
         for suffix in suffixes:
@@ -642,19 +642,17 @@ def test_ind_hap_cli_on_cuda_matches_cpu(cuda, extra, tmp_path):
 
     from rpvg_tpu_torch import cli
     from rpvg_tpu_torch.compare import compare_estimate_files
-    from rpvg_tpu_torch.ops import group_scores_cuda
 
     files = _gene_panel_files(tmp_path)
     extra = ("--ind-hap-inference", *extra)
-    tasks = em_cuda.TASKS
-    scorers = group_scores_cuda.CLUSTERS, posterior_gibbs_cuda.CLUSTERS
     rc, stats = cli.run_cli(_nested_argv(files, str(tmp_path / "cuda"), "cuda", extra))
     assert rc == 0
-    assert em_cuda.TASKS == tasks + stats["em_tasks"] > tasks
+    counters = stats["counters"]
+    assert counters["em.ragged.tasks"] == stats["em_tasks"] > 0
     if "-y" in extra:
-        assert group_scores_cuda.CLUSTERS == scorers[0] + stats["scored_clusters"]
+        assert counters["groups.kernel_clusters"] == stats["scored_clusters"]
     if "--use-hap-gibbs" in extra:
-        assert posterior_gibbs_cuda.CLUSTERS == scorers[1] + stats["scored_clusters"]
+        assert counters["gibbs.pair.clusters"] == stats["scored_clusters"]
         return
     assert cli.main(_nested_argv(files, str(tmp_path / "cpu"), "cpu", extra)) == 0
     for suffix in (".txt", "_joint.txt"):
@@ -850,10 +848,10 @@ def _hold_k_slot_to_plain(cuda, module, clusters, k, key=11):
     version's or its posterior within total variation 0.05."""
     keys = list(prng.split(prng.prng_key(key), len(clusters)))
     jobs = posteriors.posterior_gibbs_k_jobs(clusters, k, keys, cuda)
-    launches = module.LAUNCHES
-    kernel = module.posterior_gibbs_k(jobs)
+    with counted() as counts:
+        kernel = module.posterior_gibbs_k(jobs)
     torch.cuda.synchronize()
-    assert module.LAUNCHES == launches + len(jobs.launches)
+    assert counts["gibbs.kslot.launches"] == len(jobs.launches)
     assert torch.equal(kernel, module.posterior_gibbs_k(jobs))
     kernel = kernel.cpu().numpy()
     plain = module.posterior_gibbs_k_plain(jobs).cpu().numpy()
@@ -905,10 +903,10 @@ def fused_panel(cuda, tmp_path_factory):
 # (leg, its switches, the kernel it launches, its counter in the stats)
 FUSED_LEGS = [
     ("escalation", {"RPVG_TPU_EM_BOUND": "3", "RPVG_TPU_ESC_MIN_AREA": "0"}, "ragged",
-     "escalated_on_device"),
-    ("escalation_default", {"RPVG_TPU_EM_BOUND": "3"}, "ragged", "escalated_on_device"),
-    ("deferral", {"RPVG_TPU_HYBRID_EM_AREA": "8"}, "ragged", "deferred_tasks"),
-    ("slots", {"RPVG_TPU_DEVICE_SLOT_AREA": "500"}, "fused", "routed_slots"),
+     "fused.escalated_on_device"),
+    ("escalation_default", {"RPVG_TPU_EM_BOUND": "3"}, "ragged", "fused.escalated_on_device"),
+    ("deferral", {"RPVG_TPU_HYBRID_EM_AREA": "8"}, "ragged", "fused.deferred_tasks"),
+    ("slots", {"RPVG_TPU_DEVICE_SLOT_AREA": "500"}, "padded", "fused.routed_slots"),
 ]
 
 
@@ -930,13 +928,12 @@ def test_fused_nested_leg_on_cuda_matches_cpu(cuda, fused_panel, leg, switches, 
     assert cli.main(_nested_argv(fused_panel, str(tmp_path / "cpu"), "cpu")) == 0
     for name, value in switches.items():
         monkeypatch.setenv(name, value)
-    module = em_cuda if kernel == "ragged" else em_fused_cuda
-    launches, tasks = module.LAUNCHES, module.TASKS
     rc, stats = cli.run_cli(_nested_argv(fused_panel, str(tmp_path / "cuda"), "cuda"))
     assert rc == 0 and stats["route"] == "fused native"
-    assert stats[counter] > 0 and stats["device_em_tasks"] > 0
-    assert module.LAUNCHES > launches
-    assert module.TASKS == tasks + stats["device_em_tasks"]
+    counters = stats["counters"]
+    assert counters[counter] > 0 and counters["fused.device_em_tasks"] > 0
+    assert counters[f"em.{kernel}.launches"] > 0
+    assert counters[f"em.{kernel}.tasks"] == counters["fused.device_em_tasks"]
     for suffix in (".txt", "_joint.txt"):
         report = compare_estimate_files(
             os.path.join(tmp_path, "cuda" + suffix), os.path.join(tmp_path, "cpu" + suffix),
@@ -967,10 +964,10 @@ def test_fused_route_gibbs_on_cuda(cuda, fused_panel, model, switch, tmp_path, m
             "-g", fused_panel["graph.json"], "-p", fused_panel["panel.json"],
             "-a", fused_panel["aln.json"], "-o", str(tmp_path / prefix), "-i", "strains",
             "-r", "5", "--score-not-qual", "--backend", backend, "-n", "8"]
-    jobs = gibbs_cuda.JOBS
     rc, stats = cli.run_cli(argv("cuda", "cuda"))
+    counters = stats["counters"]
     assert rc == 0 and stats["route"] == "fused native" and stats["gibbs_jobs"] > 0
-    assert gibbs_cuda.JOBS == jobs + stats["gibbs_jobs"]
+    assert counters["gibbs.readcount.jobs"] == stats["gibbs_jobs"]
     assert cli.main(argv("cpu", "cpu")) == 0
     for suffix in (".txt", "_joint.txt") if model != "strains" else (".txt",):
         compare_estimate_files(os.path.join(tmp_path, "cuda" + suffix),

@@ -12,7 +12,7 @@ from rpvg_tpu.infer import em as ref_em
 from rpvg_tpu.ops.em_pallas import em_pallas_batched
 from rpvg_tpu_torch.infer import batching, em
 from rpvg_tpu_torch.ops import em_cuda
-from rpvg_tpu_torch.testing import edge_case_tasks, em_task_set
+from rpvg_tpu_torch.testing import counted, edge_case_tasks, em_task_set
 
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -121,11 +121,11 @@ def test_pack_ragged_matches_native_layout():
 
 def test_cpu_tensors_take_plain_version_without_launch():
     tasks = batching.pack_ragged(em_task_set(20, seed=8), CPU)
-    launches = em_cuda.LAUNCHES
-    fracs, iters = em_cuda.em_fixed_point(tasks, 10000, 1e-3)
+    with counted() as counts:
+        fracs, iters = em_cuda.em_fixed_point(tasks, 10000, 1e-3)
     plain_fracs, plain_iters = em_cuda.em_fixed_point_plain(tasks, 10000, 1e-3)
     assert torch.equal(fracs, plain_fracs) and torch.equal(iters, plain_iters)
-    assert em_cuda.LAUNCHES == launches
+    assert counts["em.ragged.launches"] == 0
 
 
 def test_other_devices_raise():

@@ -13,7 +13,7 @@ from rpvg_tpu.infer.em import em_abundances_batched
 from rpvg_tpu.ops.em_pallas import em_pallas_batched, em_pallas_fused
 from rpvg_tpu_torch.infer import batching
 from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
-from rpvg_tpu_torch.testing import em_task_set, padded_block_set, random_task
+from rpvg_tpu_torch.testing import counted, em_task_set, padded_block_set, random_task
 
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -148,12 +148,12 @@ def test_build_block_pads_with_zeros():
 
 def test_cpu_blocks_take_plain_version_without_launch():
     blocks = _to_torch(padded_block_set(4))
-    launches, n_blocks = em_fused_cuda.LAUNCHES, em_fused_cuda.BLOCKS
-    fracs, iters = em_fused_cuda.em_fixed_point_padded(blocks, 10000, 1e-3)
+    with counted() as counts:
+        fracs, iters = em_fused_cuda.em_fixed_point_padded(blocks, 10000, 1e-3)
     plain_fracs, plain_iters = em_fused_cuda.em_fixed_point_padded_plain(blocks, 10000, 1e-3)
     for a, b in zip(fracs + iters, plain_fracs + plain_iters):
         assert torch.equal(a, b)
-    assert (em_fused_cuda.LAUNCHES, em_fused_cuda.BLOCKS) == (launches, n_blocks)
+    assert (counts["em.padded.launches"], counts["em.padded.blocks"]) == (0, 0)
 
 
 def test_other_devices_raise():

@@ -28,7 +28,7 @@ import rpvg_tpu_torch.infer.estimators as port_estimators
 import rpvg_tpu_torch.probabilities as port_probabilities
 from rpvg_tpu import sim
 from rpvg_tpu.infer.estimates import PathClusterEstimates as RefEstimates
-from rpvg_tpu_torch import cli
+from rpvg_tpu_torch import cli, spans
 from rpvg_tpu_torch.infer import batching
 from rpvg_tpu_torch.infer.estimates import PathClusterEstimates as PortEstimates
 from rpvg_tpu_torch.ops import em_fused_cuda
@@ -137,8 +137,11 @@ def run_port_nested(seed, n_clusters, gibbs=0, min_hap_prob=0.001):
         use_group_post_gibbs=False, num_gibbs_samples=gibbs,
     )
     data = _data(nested_population(port_probabilities, seed, n_clusters), PortEstimates)
-    stats = port_batched_models.batched_haplotype_transcripts(estimator, data, CPU, rng_seed=SEED)
-    return [est for est, _ in data], stats, estimator
+    with spans.RunSpan("rpvg.test") as run:
+        stats = port_batched_models.batched_haplotype_transcripts(
+            estimator, data, CPU, rng_seed=SEED
+        )
+    return [est for est, _ in data], {**stats, **run.run.summary()}, estimator
 
 
 def run_ref_nested(seed, n_clusters, gibbs=0, min_hap_prob=0.001):
@@ -186,7 +189,7 @@ def test_fused_nested_matches_reference(min_hap_prob, monkeypatch):
     port, stats, estimator = run_port_nested(13, 25, min_hap_prob=min_hap_prob)
     assert stats["route"] == "fused native"
     assert set(stats["phase_seconds"]) == {"native", "device", "combine"}
-    assert stats["em_tasks"] > 25 and stats["device_em_tasks"] == 0
+    assert stats["em_tasks"] > 25 and "fused.device_em_tasks" not in stats["counters"]
     assert estimator._columnar_outputs["kind"] == "sets"
     assert_same_estimates(port, run_ref_nested(13, 25, min_hap_prob=min_hap_prob))
 
@@ -208,11 +211,11 @@ def test_unset_switch_keeps_the_staged_route():
 
 # (leg, its switches, the counter that shows it ran)
 LEGS = [
-    ("deferral", {"RPVG_TPU_HYBRID_EM_AREA": "8"}, "deferred_tasks"),
+    ("deferral", {"RPVG_TPU_HYBRID_EM_AREA": "8"}, "fused.deferred_tasks"),
     ("escalation", {"RPVG_TPU_EM_BOUND": "3", "RPVG_TPU_ESC_MIN_AREA": "0"},
-     "escalated_on_device"),
-    ("rebatch", {"RPVG_TPU_EM_BOUND": "3"}, "escalated_tasks"),
-    ("slots", {"RPVG_TPU_DEVICE_SLOT_AREA": "60"}, "routed_slots"),
+     "fused.escalated_on_device"),
+    ("rebatch", {"RPVG_TPU_EM_BOUND": "3"}, "fused.escalated_tasks"),
+    ("slots", {"RPVG_TPU_DEVICE_SLOT_AREA": "60"}, "fused.routed_slots"),
 ]
 
 
@@ -224,18 +227,18 @@ def test_device_leg_matches_all_native_run(leg, switches, counter, native_em, mo
     versions; the leg's counter shows that it ran."""
     monkeypatch.setenv("RPVG_TPU_FUSED_NESTED", "1")
     full, full_stats, _ = run_port_nested(31, 80)
-    assert full_stats[counter] == 0
+    assert counter not in full_stats["counters"]
     for name, value in switches.items():
         monkeypatch.setenv(name, value)
     monkeypatch.setenv("RPVG_TPU_NATIVE_EM", native_em)
     routed, stats, estimator = run_port_nested(31, 80)
-    assert stats[counter] > 0
-    if leg != "rebatch":
-        assert stats["device_em_tasks"] > 0
-    else:
-        assert stats["device_em_tasks"] == 0
+    counters = stats["counters"]
+    assert counters[counter] > 0
+    assert (counters.get("fused.device_em_tasks", 0) > 0) == (leg != "rebatch")
     if leg == "slots":
-        assert stats["dispatch_seconds"] > 0 and stats["gather_wait_seconds"] >= 0
+        found = stats["spans"]
+        assert found["rpvg.fused.dispatch"]["total_s"] > 0
+        assert found["rpvg.fused.gather_wait"]["count"] == 1
     assert estimator._columnar_outputs["combined"].all()
     assert_same_estimates(routed, full, rtol=0.0 if native_em == "1" or leg == "rebatch" else RTOL)
 
@@ -253,7 +256,7 @@ def test_slot_routing_routes_as_reference(monkeypatch):
         if rpps:
             dense = port_batched_models.cluster_matrix(rpps, len(paths))
             areas.append(dense[0].shape[0] * dense[0].shape[1])
-    assert stats["routed_slots"] == len(select_device_slots(areas)) > 0
+    assert stats["counters"]["fused.routed_slots"] == len(select_device_slots(areas)) > 0
 
 
 def test_hybrid_area_zero_defers_nothing(monkeypatch):
@@ -263,7 +266,7 @@ def test_hybrid_area_zero_defers_nothing(monkeypatch):
     full, _, _ = run_port_nested(31, 30)
     monkeypatch.setenv("RPVG_TPU_HYBRID_EM_AREA", "0")
     routed, stats, _ = run_port_nested(31, 30)
-    assert stats["deferred_tasks"] == 0 and stats["route"] == "fused native"
+    assert "fused.deferred_tasks" not in stats["counters"] and stats["route"] == "fused native"
     assert stats["em_bound"] == 1024
     assert_same_estimates(routed, full)
 

@@ -22,7 +22,7 @@ from rpvg_tpu_torch import prng
 from rpvg_tpu_torch.infer import estimators, posteriors, readcount_gibbs
 from rpvg_tpu_torch.infer.batching import pack_ragged
 from rpvg_tpu_torch.ops import gibbs_cuda, posterior_gibbs_cuda
-from rpvg_tpu_torch.testing import gibbs_edge_jobs, gibbs_job_set
+from rpvg_tpu_torch.testing import counted, gibbs_edge_jobs, gibbs_job_set
 
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -151,12 +151,12 @@ def test_other_group_sizes_name_item_10():
     sampler: no clusters give no results, and a cluster at group size 3
     takes the plain version on the CPU, not the pair-score samplers."""
     assert posteriors.path_group_posteriors_gibbs_batched([], 3, [], CPU) == []
-    launches = posterior_gibbs_cuda.LAUNCHES
     cluster = _edge_posterior()
-    (groups, freqs), = posteriors.path_group_posteriors_gibbs_batched(
-        [cluster], 3, [prng.prng_key(3)], CPU
-    )
-    assert posterior_gibbs_cuda.LAUNCHES == launches
+    with counted() as counts:
+        (groups, freqs), = posteriors.path_group_posteriors_gibbs_batched(
+            [cluster], 3, [prng.prng_key(3)], CPU
+        )
+    assert counts["gibbs.pair.launches"] == 0
     assert all(len(g) == 3 and list(g) == sorted(g) for g in groups)
     assert float(np.sum(freqs)) == pytest.approx(1.0)
 
@@ -344,17 +344,19 @@ def test_cpu_tensors_take_plain_versions_without_launch():
     inputs = _gibbs_jobs(14, 3)
     keys = list(prng.split(prng.prng_key(1), 3))
     jobs = _jobs_on(inputs, keys, [2, 2, 2])
-    launches = gibbs_cuda.LAUNCHES
-    assert torch.equal(
-        gibbs_cuda.gibbs_read_counts(jobs, 3, 1.0), gibbs_cuda.gibbs_read_counts_plain(jobs, 3, 1.0)
-    )
-    assert gibbs_cuda.LAUNCHES == launches
+    with counted() as counts:
+        assert torch.equal(
+            gibbs_cuda.gibbs_read_counts(jobs, 3, 1.0),
+            gibbs_cuda.gibbs_read_counts_plain(jobs, 3, 1.0),
+        )
+    assert counts["gibbs.readcount.launches"] == 0
     pjobs = posteriors.posterior_gibbs_jobs([_edge_posterior()], [keys[0]], CPU)
-    launches = posterior_gibbs_cuda.LAUNCHES
-    assert torch.equal(
-        posterior_gibbs_cuda.posterior_gibbs(pjobs), posterior_gibbs_cuda.posterior_gibbs_plain(pjobs)
-    )
-    assert posterior_gibbs_cuda.LAUNCHES == launches
+    with counted() as counts:
+        assert torch.equal(
+            posterior_gibbs_cuda.posterior_gibbs(pjobs),
+            posterior_gibbs_cuda.posterior_gibbs_plain(pjobs),
+        )
+    assert counts["gibbs.pair.launches"] == 0
 
 
 def _edge_posterior():

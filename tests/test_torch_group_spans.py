@@ -1,8 +1,9 @@
 """The k-group route of phase B under the port's spans and counters
 (``posteriors.full_posteriors_batched``): the four ``rpvg.groups.*``
 spans once per call, each ``groups.*`` counter equal to its closed form
-over the call's inputs, the host engine's clusters counted, and a
-diploid pass recording none of these names; on the CPU, on synthetic
+over the call's inputs, the host engine's clusters counted, a
+diploid pass recording none of these names, and a second pass counting
+what the first did (the counters are per run); on the CPU, on synthetic
 clusters and through ``run_pipeline`` on a small ``.rpa``."""
 
 import math
@@ -13,8 +14,9 @@ import torch
 
 from rpvg_tpu_torch import spans
 from rpvg_tpu_torch.infer import batched_models, posteriors
+from rpvg_tpu_torch.parallel import autoshard
 from rpvg_tpu_torch.pipeline import run_pipeline
-from rpvg_tpu_torch.testing import enumeration_cluster_set
+from rpvg_tpu_torch.testing import enumeration_cluster_set, shard_counts
 
 from test_torch_slice import one_torch_thread  # noqa: F401
 from test_torch_spans import small_rpa, staged  # noqa: F401
@@ -142,8 +144,31 @@ def test_tetraploid_pass_counts_the_host_engine(small_rpa, staged, phase_b_calls
     want = closed_forms(phase_b_calls, limit=34)
     assert want["groups.host_enum_clusters"] > 0
     assert stats["counters"]["groups.host_enum_clusters"] == want["groups.host_enum_clusters"]
-    assert stats["enumeration_fallback_clusters"] == want["groups.host_enum_clusters"]
+    assert stats["counters"]["posteriors.scored.cpu"] == stats["scored_clusters"]
     assert {name: stats["counters"][name] for name in COUNTERS} == want
+
+
+@pytest.mark.parametrize("limit", [None, 34], ids=["scorer", "host-engine"])
+def test_second_pass_counts_what_the_first_did(limit, small_rpa, staged,  # noqa: F811
+                                               tmp_path, monkeypatch):
+    """Two -y 4 passes in a row on two data shards (the scorer's clusters
+    and the plain EM's tasks split over them), or with every cluster on
+    the host engine: the second reports the first's host-engine
+    clusters, scored clusters by device and what each shard took, not
+    their sums."""
+    if limit is not None:
+        monkeypatch.setattr(posteriors, "_FULL_ENUM_GROUP_LIMIT", limit)
+    monkeypatch.setenv("RPVG_TPU_NATIVE_EM", "0")
+    with autoshard.virtual_devices(CPU, 2):
+        first, second = (_run(small_rpa, tmp_path / f"y4_{n}", ploidy=4)["counters"]
+                         for n in (1, 2))
+    names = ("groups.host_enum_clusters", "posteriors.scored.cpu", "posteriors.scored.cuda")
+    assert [second.get(name) for name in names] == [first.get(name) for name in names]
+    assert first["posteriors.scored.cpu"] > 0
+    assert (first["groups.host_enum_clusters"] > 0) == (limit is not None)
+    assert shard_counts(second) == shard_counts(first)
+    assert len(shard_counts(first, "em_tasks")) == 2
+    assert sum(shard_counts(first, "group_clusters")) == first["groups.clusters"]
 
 
 def test_diploid_pass_records_no_group_names(small_rpa, staged, phase_b_calls,  # noqa: F811

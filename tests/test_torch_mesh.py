@@ -21,7 +21,14 @@ from rpvg_tpu_torch.infer import batching, posteriors, readcount_gibbs
 from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
 from rpvg_tpu_torch.parallel import autoshard, mesh
 from rpvg_tpu_torch.pipeline import PipelineConfig, run_pipeline
-from rpvg_tpu_torch.testing import em_task_set, gibbs_job_set, posterior_cluster_set, random_task
+from rpvg_tpu_torch.testing import (
+    counted,
+    em_task_set,
+    gibbs_job_set,
+    posterior_cluster_set,
+    random_task,
+    shard_counts,
+)
 
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -139,12 +146,11 @@ def test_giant_cluster_shard_route_matches_jax(monkeypatch):
     ref_groups, ref_post = ref_posteriors.path_group_posteriors_diploid(
         probs, noise, counts, path_counts, 1e-300
     )
-    before = posteriors.SHARDED_PAIR_CLUSTERS
-    with _shards():
+    with _shards(), counted() as found:
         groups, post = posteriors.path_group_posteriors_diploid(
             probs, noise, counts, path_counts, 1e-300, CPU
         )
-    assert ran and posteriors.SHARDED_PAIR_CLUSTERS == before + 1
+    assert ran and found["posteriors.sharded_pair_clusters"] == 1
     assert groups == ref_groups
     np.testing.assert_allclose(post, ref_post, rtol=1e-9, atol=1e-12)
 
@@ -208,9 +214,9 @@ DISPATCHES = {
 @pytest.mark.parametrize("name", sorted(DISPATCHES))
 def test_sharded_dispatch_bitwise_equal_to_one_shard(name, plain):
     single = DISPATCHES[name]()
-    with _shards():
+    with _shards(), counted() as counts:
         sharded = DISPATCHES[name]()
-        work = autoshard.take_shard_work()
+    work = shard_counts(counts)
     assert _results_equal(sharded, single)
     assert len(work) > 1 and sum(work) > 0, work
 
@@ -267,10 +273,9 @@ def test_giant_cluster_route_bitwise_equal_to_blocked(plain, monkeypatch):
     monkeypatch.setenv("RPVG_TPU_PAIR_TENSOR_LIMIT", "256")
     clusters = posterior_cluster_set(30, seed=14)
     single = posteriors.diploid_posteriors_batched(clusters, 1e-3, CPU)
-    before = posteriors.SHARDED_PAIR_CLUSTERS
-    with _shards():
+    with _shards(), counted() as counts:
         sharded = posteriors.diploid_posteriors_batched(clusters, 1e-3, CPU)
-    assert posteriors.SHARDED_PAIR_CLUSTERS > before
+    assert counts["posteriors.sharded_pair_clusters"] > 0
     assert _results_equal(sharded, single)
 
 
@@ -362,10 +367,12 @@ def test_pipeline_stats_report_shards(dataset, tmp_path, plain):
     with _shards(4):
         stats = run(str(tmp_path / "sharded"))
     assert single["data_shards"] == 1 and stats["data_shards"] == 4
-    assert single["shard_work"]["D"] == [single["em_tasks"]]
-    work = stats["shard_work"]
-    assert len(work["D"]) == 4 and sum(work["D"]) == stats["em_tasks"]
-    assert sum(work["D2"]) == stats["gibbs_jobs"] and sum(work["B"]) == stats["scored_clusters"]
+    assert shard_counts(single["counters"], "em_tasks") == [single["em_tasks"]]
+    work = {items: shard_counts(stats["counters"], items)
+            for items in ("em_tasks", "gibbs_jobs", "pair_clusters")}
+    assert len(work["em_tasks"]) == 4 and sum(work["em_tasks"]) == stats["em_tasks"]
+    assert sum(work["gibbs_jobs"]) == stats["gibbs_jobs"]
+    assert sum(work["pair_clusters"]) == stats["scored_clusters"]
     assert stats["device_peak_mib"] == {} and stats["device_peak_mib_max"] == 0.0
     assert _read(str(tmp_path / "sharded")) == _read(str(tmp_path / "single"))
 

@@ -19,11 +19,11 @@ import torch
 
 import rpvg_tpu  # noqa: F401  (x64 on)
 from rpvg_tpu.infer import posteriors as ref_posteriors
-from rpvg_tpu_torch import prng
+from rpvg_tpu_torch import prng, spans
 from rpvg_tpu_torch.infer import posteriors
 from rpvg_tpu_torch.mathutils import num_permutations
 from rpvg_tpu_torch.ops import group_scores_cuda, posterior_gibbs_k_cuda
-from rpvg_tpu_torch.testing import enumeration_cluster_set, posterior_wide_cluster
+from rpvg_tpu_torch.testing import counted, enumeration_cluster_set, posterior_wide_cluster
 
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -69,9 +69,9 @@ def test_group_scores_plain_matches_jax(k):
 @pytest.mark.parametrize("k", [1, 3, 4, 5])
 def test_full_posteriors_batched_matches_jax_and_host_engine(k):
     clusters = enumeration_cluster_set(10, seed=110 + k, group_size=k, max_rows=64)
-    scored = posteriors.SCORED_CLUSTERS["cpu"]
-    port = posteriors.full_posteriors_batched(clusters, k, CPU)
-    assert posteriors.SCORED_CLUSTERS["cpu"] == scored + len(clusters)
+    with counted() as counts:
+        port = posteriors.full_posteriors_batched(clusters, k, CPU)
+    assert counts["posteriors.scored.cpu"] == len(clusters)
     ref = ref_posteriors.full_posteriors_batched(clusters, k)
     for cluster, (groups, post), (ref_groups, ref_post) in zip(clusters, port, ref):
         assert groups == ref_groups
@@ -84,20 +84,21 @@ def test_full_posteriors_batched_matches_jax_and_host_engine(k):
 
 def test_full_posteriors_host_fallback_over_the_group_limit(monkeypatch):
     """A cluster whose padded enumeration exceeds the limit runs the host
-    engine, counted with its seconds; the others still go through the
-    scorer (as tests/test_inference.py forces it in the JAX package)."""
+    engine, counted, with its seconds under a span; the others still go
+    through the scorer (as tests/test_inference.py forces it in the JAX package)."""
     clusters = enumeration_cluster_set(4, seed=120, group_size=3, max_rows=20)
     # At most 8 paths (comb(8 + 2, 3) = 120 groups) stay on the scorer.
     monkeypatch.setattr(posteriors, "_FULL_ENUM_GROUP_LIMIT", 120)
     monkeypatch.setattr(ref_posteriors, "_FULL_ENUM_GROUP_LIMIT", 120)
-    before = dict(posteriors.HOST_ENUMERATION)
-    port = posteriors.full_posteriors_batched(clusters, 3, CPU)
+    with spans.RunSpan("rpvg.counted") as run:
+        port = posteriors.full_posteriors_batched(clusters, 3, CPU)
+    found = run.run.summary()
     fell_back = sum(
         math.comb(posteriors._ceil_pow2(c[0].shape[1]) + 2, 3) > 120 for c in clusters
     )
     assert 0 < fell_back < len(clusters)
-    assert posteriors.HOST_ENUMERATION["clusters"] == before["clusters"] + fell_back
-    assert posteriors.HOST_ENUMERATION["seconds"] > before["seconds"]
+    assert found["counters"]["groups.host_enum_clusters"] == fell_back
+    assert found["spans"]["rpvg.groups.host_enum"]["total_s"] > 0
     ref = ref_posteriors.full_posteriors_batched(clusters, 3)
     for (groups, post), (ref_groups, ref_post) in zip(port, ref):
         assert groups == [list(g) for g in ref_groups]
@@ -316,11 +317,11 @@ def test_nonzero_lists_give_the_dense_logits(ctas):
 
 def test_cpu_tensors_take_plain_versions_without_launch():
     clusters = enumeration_cluster_set(3, seed=154, group_size=3, max_rows=10)
-    launches = group_scores_cuda.LAUNCHES, posterior_gibbs_k_cuda.LAUNCHES
-    posteriors.full_posteriors_batched(clusters, 3, CPU)
-    jobs = _k_jobs(clusters, 3, [(2, 2, 3)] * 3)
-    assert torch.equal(
-        posterior_gibbs_k_cuda.posterior_gibbs_k(jobs),
-        posterior_gibbs_k_cuda.posterior_gibbs_k_plain(jobs),
-    )
-    assert (group_scores_cuda.LAUNCHES, posterior_gibbs_k_cuda.LAUNCHES) == launches
+    with counted() as counts:
+        posteriors.full_posteriors_batched(clusters, 3, CPU)
+        jobs = _k_jobs(clusters, 3, [(2, 2, 3)] * 3)
+        assert torch.equal(
+            posterior_gibbs_k_cuda.posterior_gibbs_k(jobs),
+            posterior_gibbs_k_cuda.posterior_gibbs_k_plain(jobs),
+        )
+    assert (counts["groups.launches"], counts["gibbs.kslot.launches"]) == (0, 0)

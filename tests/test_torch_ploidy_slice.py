@@ -86,7 +86,7 @@ def test_cli_matches_reference_pipeline(model, ploidy, panel_files, tmp_path):
     rc, stats = cli.run_cli(_argv(panel_files, model, ploidy, prefix))
     assert rc == 0
     assert stats["group_engine"] == f"full enumeration, group size {ploidy}"
-    assert stats["enumeration_fallback_clusters"] == 0
+    assert stats["counters"]["groups.host_enum_clusters"] == 0
     _reference(panel_files, model, ploidy, ref_prefix)
     suffixes = (".txt", "_joint.txt") if model == "haplotype-transcripts" else (".txt",)
     for suffix in suffixes:

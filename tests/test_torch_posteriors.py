@@ -11,6 +11,7 @@ from rpvg_tpu.infer import posteriors as ref_post
 from rpvg_tpu.infer.matrices import calc_path_log_frequencies
 from rpvg_tpu_torch.infer import posteriors
 from rpvg_tpu_torch.ops import posterior_gibbs_cuda
+from rpvg_tpu_torch.testing import counted
 
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -116,11 +117,11 @@ def test_native_select_matches_python_select():
 
 
 def test_scored_clusters_counted_by_device():
-    before = dict(posteriors.SCORED_CLUSTERS)
     clusters = _clusters(8, [(4, 3), (6, 2)])
-    posteriors.diploid_posteriors_batched(clusters, 1e-3, CPU)
-    assert posteriors.SCORED_CLUSTERS["cpu"] == before["cpu"] + 2
-    assert posteriors.SCORED_CLUSTERS["cuda"] == before["cuda"]
+    with counted() as counts:
+        posteriors.diploid_posteriors_batched(clusters, 1e-3, CPU)
+    assert counts["posteriors.scored.cpu"] == 2
+    assert counts["posteriors.scored.cuda"] == 0
 
 
 # ------------------------------------------- the pair sampler's draws

@@ -19,6 +19,7 @@ from rpvg_tpu_torch import alignments, sim, spans
 from rpvg_tpu_torch.infer import batched_models
 from rpvg_tpu_torch.io import rpa
 from rpvg_tpu_torch.pipeline import PipelineConfig, run_pipeline
+from rpvg_tpu_torch.testing import counted
 
 from test_torch_slice import one_torch_thread  # noqa: F401
 
@@ -129,6 +130,21 @@ def test_recent_runs_keep_the_last_64():
     assert list(kept[-1]["spans"]) == [f"run{spans.KEEP_RUNS + 5}"]
     assert list(kept[0]["spans"]) == ["run6"]
     assert spans.recent_runs(0) == []
+
+
+def test_counted_reads_its_own_run_and_refuses_an_open_one():
+    """``testing.counted`` gives the block's own counters, 0 for one it
+    never added to, and raises inside a run already open, whose counters
+    it would otherwise read."""
+    with spans.RunSpan("outer"):
+        spans.count("before", 3)
+        with pytest.raises(RuntimeError, match="open run"):
+            with counted():
+                pass
+    with counted() as counts:
+        spans.count("items", 2)
+    assert counts == {"items": 2} and counts["before"] == 0
+    assert spans.recent_runs(2)[0]["counters"] == {"before": 3}
 
 
 # ------------------------------------------------- run_pipeline, end to end

@@ -25,6 +25,9 @@ from .scoring import QUAL_FULL_LENGTH_BONUSES, QUAL_MATCH_SCORES
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_PKG_DIR, "csrc", "host", "rpvg_native.cpp")
+# The library's translation unit: rpvg_native.cpp and the `.rpa` fragment
+# pass that includes it (fragment_pass.py).
+_TU = os.path.join(_PKG_DIR, "csrc", "host", "fragment_pass.cpp")
 _LIB = os.path.join(_PKG_DIR, "build", "host", "librpvg_native.so")
 
 _lib = None
@@ -60,7 +63,7 @@ def _build_library() -> bool:
         # bitwise-comparable with the Python engines.
         "g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
         "-shared", "-fPIC", "-pthread",
-        _SRC, "-o", tmp,
+        _TU, "-o", tmp,
     ]
     try:
         result = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
@@ -87,7 +90,8 @@ def load_library() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
+    newest = max(os.path.getmtime(_SRC), os.path.getmtime(_TU))
+    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < newest:
         if not _build_library():
             return None
     lib = ctypes.CDLL(_LIB)
@@ -410,6 +414,40 @@ class ColumnarFragments:
         ]
 
 
+def columnar_fragments(data: bytes, hist_size: int) -> ColumnarFragments:
+    """:class:`ColumnarFragments` over a dump in the layout of
+    ``rpvg_indexer_dump_located`` (also ``rpvg_flat_dump``'s)."""
+    (n,) = struct.unpack_from("<Q", data, 0)
+    offset = 8
+    counts = np.frombuffer(data, dtype=np.uint64, count=n, offset=offset)
+    offset += 8 * n
+    anchors = np.frombuffer(data, dtype=np.int64, count=n, offset=offset)
+    offset += 8 * n
+    n_ids = np.frombuffer(data, dtype=np.int32, count=n, offset=offset)
+    offset += 4 * n
+    (ids_total,) = struct.unpack_from("<q", data, offset)
+    offset += 8
+    all_ids = np.frombuffer(data, dtype=np.int64, count=ids_total, offset=offset)
+    offset += 8 * ids_total
+    raw_lens = np.frombuffer(data, dtype=np.int64, count=n, offset=offset)
+    offset += 8 * n
+
+    id_bounds = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(n_ids, out=id_bounds[1:])
+    raw_bounds = np.full(n + 1, offset, dtype=np.int64)
+    np.cumsum(raw_lens, out=raw_bounds[1:])
+    raw_bounds[1:] += offset
+    offset = int(raw_bounds[-1])
+
+    (unaligned,) = struct.unpack_from("<Q", data, offset)
+    offset += 8
+    histogram = np.frombuffer(data, dtype=np.int64, count=hist_size, offset=offset).copy()
+    return ColumnarFragments(
+        data, counts, anchors, id_bounds, all_ids, raw_bounds,
+        histogram, int(unaligned),
+    )
+
+
 def _parse_path_list(view, offset):
     """Parse one serialized alignment-path list; returns (paths, offset)."""
     (n_paths,) = struct.unpack_from("<i", view, offset)
@@ -666,36 +704,7 @@ class NativeFinder:
             data = ctypes.string_at(out_ptr, out_len.value)
         finally:
             self._lib.rpvg_buffer_free(out_ptr)
-
-        (n,) = struct.unpack_from("<Q", data, 0)
-        offset = 8
-        counts = np.frombuffer(data, dtype=np.uint64, count=n, offset=offset)
-        offset += 8 * n
-        anchors = np.frombuffer(data, dtype=np.int64, count=n, offset=offset)
-        offset += 8 * n
-        n_ids = np.frombuffer(data, dtype=np.int32, count=n, offset=offset)
-        offset += 4 * n
-        (ids_total,) = struct.unpack_from("<q", data, offset)
-        offset += 8
-        all_ids = np.frombuffer(data, dtype=np.int64, count=ids_total, offset=offset)
-        offset += 8 * ids_total
-        raw_lens = np.frombuffer(data, dtype=np.int64, count=n, offset=offset)
-        offset += 8 * n
-
-        id_bounds = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(n_ids, out=id_bounds[1:])
-        raw_bounds = np.full(n + 1, offset, dtype=np.int64)
-        np.cumsum(raw_lens, out=raw_bounds[1:])
-        raw_bounds[1:] += offset
-        offset = int(raw_bounds[-1])
-
-        (unaligned,) = struct.unpack_from("<Q", data, offset)
-        offset += 8
-        histogram = np.frombuffer(data, dtype=np.int64, count=hist_size, offset=offset).copy()
-        cols = ColumnarFragments(
-            data, counts, anchors, id_bounds, all_ids, raw_bounds,
-            histogram, int(unaligned),
-        )
+        cols = columnar_fragments(data, hist_size)
         cols.n_threads = int(self._iparams[7])
         return cols
 

@@ -12,7 +12,9 @@ probe or watchdog, ``RPVG_TPU_TORCH_PROFILE=<dir>`` takes the place
 of the ``jax.profiler`` hook (a ``torch.profiler`` Chrome trace of the
 batched dispatch per call), and their timings are spans
 (:mod:`rpvg_tpu_torch.spans`).  :func:`collect_fragments` is the JAX
-package's with spans and counters added (pinned with them stripped).
+package's with spans and counters added (pinned with them stripped); a
+single-process pass over an ``.rpa`` file takes the port's own
+:func:`collect_fragments_flat` instead, which gives the same index.
 Every configuration
 of the JAX package runs: the four inference models, read-count Gibbs
 sampling (``-n``), ``haplotypes`` and ``haplotype-transcripts`` at every
@@ -34,7 +36,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from rpvg_tpu_torch import spans
+from rpvg_tpu_torch import fragment_pass, spans
 from rpvg_tpu_torch.clustering import PathClusters, split_by_bounds
 from rpvg_tpu_torch.constants import FRAG_LENGTH_MIN_MAPQ
 from rpvg_tpu_torch.device import peak_memory_mib
@@ -1040,6 +1042,48 @@ class PipelineInputError(RuntimeError):
 # ------------------------------------------------------------ entry points
 
 
+def collect_fragments_flat(
+    config: PipelineConfig, finder, pre_frag_length_dist: FragmentLengthDist
+) -> "ColumnarFragmentIndex":
+    """:func:`collect_fragments`'s columnar index of a whole ``.rpa`` file,
+    from one GIL-free native call (:mod:`rpvg_tpu_torch.fragment_pass`).
+    Spans ``rpvg.fragments.project`` and ``.dump`` are the two calls;
+    ``.read`` (the reader's seconds in reads) and ``.wait`` (the workers'
+    mean seconds waiting for a block) come from the native clocks.
+    Counters ``fragments.blocks``, ``.bytes``, ``.flat_pass`` (1) and
+    ``.arena_bytes`` (the workers' peak arena bytes)."""
+    from rpvg_tpu_torch.io.rpa import RpaReader
+
+    header = RpaReader(config.alignments)
+    header.close()
+    if header.is_paired != (not config.is_single_end()):
+        raise PipelineInputError(
+            f"rpa file is {'paired' if header.is_paired else 'single-end'} "
+            f"but the pipeline is configured otherwise"
+        )
+    if header.is_multipath != (not config.single_path):
+        raise PipelineInputError(
+            "rpa record type (multipath/single-path) does not match configuration"
+        )
+    with spans.Span("rpvg.fragments.project"):
+        flat = fragment_pass.FlatPass(
+            finder, config.alignments, pre_frag_length_dist.max_length + 1,
+            int(pre_frag_length_dist.loc), config.is_single_end(),
+        )
+    stats = flat.stats
+    run = spans.current_run()
+    if run is not None:
+        run.add("rpvg.fragments.read", stats.read_s, stats.read_s)
+        run.add("rpvg.fragments.wait", stats.wait_s, stats.wait_s)
+    spans.count("fragments.blocks", stats.blocks)
+    spans.count("fragments.bytes", stats.bytes)
+    spans.count("fragments.flat_pass")
+    spans.count("fragments.arena_bytes", stats.arena_bytes)
+    with spans.Span("rpvg.fragments.dump"):
+        cols = flat.dump()
+    return ColumnarFragmentIndex(cols, pre_frag_length_dist, config.is_single_end())
+
+
 @contextlib.contextmanager
 def _collector_held():
     """Automatic collections of the cyclic collector held for the block,
@@ -1116,9 +1160,12 @@ def _run_pass(config: PipelineConfig, device: torch.device, whole: spans.RunSpan
     info_future = submit_info_parse(config)
 
     with spans.Span("rpvg.fragments") as fragments:
-        fragment_index = collect_fragments(
-            config, finder, pre_frag_length_dist, columnar=True
-        )
+        if fragment_pass.takes(config.alignments, finder):
+            fragment_index = collect_fragments_flat(config, finder, pre_frag_length_dist)
+        else:
+            fragment_index = collect_fragments(
+                config, finder, pre_frag_length_dist, columnar=True
+            )
     num_entries = (
         fragment_index.num_entries()
         if isinstance(fragment_index, ColumnarFragmentIndex)

@@ -7,9 +7,12 @@ up here until the other carries it too, with two named exceptions:
   absolute path of a checkout, the copy gives the path relative to it
   (``reference/src/...``; ``relative_reference_paths``);
 * ``native.py`` differs in the lines named by ``NATIVE_EDITS``: the port
-  builds its own copy of the C++ source into its own build directory,
-  through a temporary file, and counts the rows its output composer
-  writes (``outputs.composed_rows``, :mod:`rpvg_tpu_torch.spans`).
+  builds its own copy of the C++ source, with the ``.rpa`` fragment pass
+  that includes it (``csrc/host/fragment_pass.cpp``), into its own build
+  directory, through a temporary file, parses a columnar dump in one
+  function that the flat pass shares (``columnar_fragments``), and counts
+  the rows its output composer writes (``outputs.composed_rows``,
+  :mod:`rpvg_tpu_torch.spans`).
 
 No file of the port imports the JAX package."""
 
@@ -39,6 +42,9 @@ NATIVE_EDITS = [
         '_LIB = os.path.join(_NATIVE_DIR, "librpvg_native.so")\n',
         '_PKG_DIR = os.path.dirname(os.path.abspath(__file__))\n'
         '_SRC = os.path.join(_PKG_DIR, "csrc", "host", "rpvg_native.cpp")\n'
+        "# The library's translation unit: rpvg_native.cpp and the `.rpa` fragment\n"
+        "# pass that includes it (fragment_pass.py).\n"
+        '_TU = os.path.join(_PKG_DIR, "csrc", "host", "fragment_pass.cpp")\n'
         '_LIB = os.path.join(_PKG_DIR, "build", "host", "librpvg_native.so")\n',
     ),
     (
@@ -53,7 +59,12 @@ NATIVE_EDITS = [
     ),
     (
         "        _SRC, \"-o\", _LIB,\n",
-        "        _SRC, \"-o\", tmp,\n",
+        "        _TU, \"-o\", tmp,\n",
+    ),
+    (
+        "    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):\n",
+        "    newest = max(os.path.getmtime(_SRC), os.path.getmtime(_TU))\n"
+        "    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < newest:\n",
     ),
     (
         "        return False\n"
@@ -61,6 +72,89 @@ NATIVE_EDITS = [
         "        return False\n"
         "    os.replace(tmp, _LIB)\n"
         "    return True\n",
+    ),
+    (
+        "        try:\n"
+        "            data = ctypes.string_at(out_ptr, out_len.value)\n"
+        "        finally:\n"
+        "            self._lib.rpvg_buffer_free(out_ptr)\n"
+        "\n"
+        '        (n,) = struct.unpack_from("<Q", data, 0)\n'
+        "        offset = 8\n"
+        "        counts = np.frombuffer(data, dtype=np.uint64, count=n, offset=offset)\n"
+        "        offset += 8 * n\n"
+        "        anchors = np.frombuffer(data, dtype=np.int64, count=n, offset=offset)\n"
+        "        offset += 8 * n\n"
+        "        n_ids = np.frombuffer(data, dtype=np.int32, count=n, offset=offset)\n"
+        "        offset += 4 * n\n"
+        '        (ids_total,) = struct.unpack_from("<q", data, offset)\n'
+        "        offset += 8\n"
+        "        all_ids = np.frombuffer(data, dtype=np.int64, count=ids_total, offset=offset)\n"
+        "        offset += 8 * ids_total\n"
+        "        raw_lens = np.frombuffer(data, dtype=np.int64, count=n, offset=offset)\n"
+        "        offset += 8 * n\n"
+        "\n"
+        "        id_bounds = np.zeros(n + 1, dtype=np.int64)\n"
+        "        np.cumsum(n_ids, out=id_bounds[1:])\n"
+        "        raw_bounds = np.full(n + 1, offset, dtype=np.int64)\n"
+        "        np.cumsum(raw_lens, out=raw_bounds[1:])\n"
+        "        raw_bounds[1:] += offset\n"
+        "        offset = int(raw_bounds[-1])\n"
+        "\n"
+        '        (unaligned,) = struct.unpack_from("<Q", data, offset)\n'
+        "        offset += 8\n"
+        "        histogram = np.frombuffer(data, dtype=np.int64, count=hist_size, offset=offset).copy()\n"
+        "        cols = ColumnarFragments(\n"
+        "            data, counts, anchors, id_bounds, all_ids, raw_bounds,\n"
+        "            histogram, int(unaligned),\n"
+        "        )\n"
+        "        cols.n_threads = int(self._iparams[7])\n"
+        "        return cols\n",
+        "        try:\n"
+        "            data = ctypes.string_at(out_ptr, out_len.value)\n"
+        "        finally:\n"
+        "            self._lib.rpvg_buffer_free(out_ptr)\n"
+        "        cols = columnar_fragments(data, hist_size)\n"
+        "        cols.n_threads = int(self._iparams[7])\n"
+        "        return cols\n",
+    ),
+    (
+        "def _parse_path_list(view, offset):\n",
+        "def columnar_fragments(data: bytes, hist_size: int) -> ColumnarFragments:\n"
+        '    """:class:`ColumnarFragments` over a dump in the layout of\n'
+        '    ``rpvg_indexer_dump_located`` (also ``rpvg_flat_dump``\'s)."""\n'
+        '    (n,) = struct.unpack_from("<Q", data, 0)\n'
+        "    offset = 8\n"
+        "    counts = np.frombuffer(data, dtype=np.uint64, count=n, offset=offset)\n"
+        "    offset += 8 * n\n"
+        "    anchors = np.frombuffer(data, dtype=np.int64, count=n, offset=offset)\n"
+        "    offset += 8 * n\n"
+        "    n_ids = np.frombuffer(data, dtype=np.int32, count=n, offset=offset)\n"
+        "    offset += 4 * n\n"
+        '    (ids_total,) = struct.unpack_from("<q", data, offset)\n'
+        "    offset += 8\n"
+        "    all_ids = np.frombuffer(data, dtype=np.int64, count=ids_total, offset=offset)\n"
+        "    offset += 8 * ids_total\n"
+        "    raw_lens = np.frombuffer(data, dtype=np.int64, count=n, offset=offset)\n"
+        "    offset += 8 * n\n"
+        "\n"
+        "    id_bounds = np.zeros(n + 1, dtype=np.int64)\n"
+        "    np.cumsum(n_ids, out=id_bounds[1:])\n"
+        "    raw_bounds = np.full(n + 1, offset, dtype=np.int64)\n"
+        "    np.cumsum(raw_lens, out=raw_bounds[1:])\n"
+        "    raw_bounds[1:] += offset\n"
+        "    offset = int(raw_bounds[-1])\n"
+        "\n"
+        '    (unaligned,) = struct.unpack_from("<Q", data, offset)\n'
+        "    offset += 8\n"
+        "    histogram = np.frombuffer(data, dtype=np.int64, count=hist_size, offset=offset).copy()\n"
+        "    return ColumnarFragments(\n"
+        "        data, counts, anchors, id_bounds, all_ids, raw_bounds,\n"
+        "        histogram, int(unaligned),\n"
+        "    )\n"
+        "\n"
+        "\n"
+        "def _parse_path_list(view, offset):\n",
     ),
     (
         "        lib.rpvg_buffer_free(out_joint)\n"

@@ -1053,6 +1053,11 @@ def batched_haplotype_transcripts_independent(
     * D, D2, E as in :func:`batched_haplotype_transcripts`, D2 continuing
       each cluster's numpy stream and key chain where I3 and I2 left them.
 
+    Counters, once a call: ``indhap.clusters`` (clusters with jobs),
+    ``indhap.jobs``, ``indhap.single_candidate_jobs`` (jobs left with
+    one group set), ``indhap.draws`` (jobs x floor(1 / min_hap_prob))
+    and ``indhap.subsets`` (the distinct subsets, phase D's tasks).
+
     Returns ``phase_seconds``, ``scored_clusters`` (the posterior jobs of
     phase I2), ``group_engine``, ``em_tasks`` and ``gibbs_jobs``."""
     if not (supports_batched_nested(estimator) and not estimator.infer_collapsed):
@@ -1120,6 +1125,13 @@ def batched_haplotype_transcripts_independent(
     cluster_tasks, all_tasks, key_base_of, np_rng_of = _sample_subsets(
         estimator, cluster_data, cluster_groups, jobs, results, rng_seed, rank_of
     )
+    spans.count("indhap.clusters", len(cluster_groups))
+    spans.count("indhap.jobs", len(jobs))
+    spans.count(
+        "indhap.single_candidate_jobs", sum(len(groups_g) == 1 for groups_g, _ in results)
+    )
+    spans.count("indhap.draws", len(jobs) * math.floor(1.0 / estimator.min_hap_prob))
+    spans.count("indhap.subsets", len(all_tasks))
     clock.lap("I3", "subset sampling")
 
     # Phase C (host): every task matrix in one threaded native call.

@@ -48,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rpvg_tpu_torch import spans
 from rpvg_tpu_torch.constants import MIN_EM_ABUNDANCE
 from rpvg_tpu_torch.ops import em_cuda, em_fused_cuda
 from rpvg_tpu_torch.ops.em_cuda import RaggedTasks
@@ -299,33 +300,51 @@ def run_batched_em_packed(
     come back in task order.  On the CPU the native kernel runs
     (:func:`run_native_em`, as in the JAX package, so a CPU run is
     bitwise the JAX package's) unless ``RPVG_TPU_NATIVE_EM=0`` or the
-    multi-bucket route is asked for; then the kernels' plain versions."""
+    multi-bucket route is asked for; then the kernels' plain versions.
+
+    Spans, once a call: ``rpvg.em.launch``, the kernel calls and the one
+    wait for their results (on the native and multi-bucket routes, the
+    whole call); on the ragged route also ``rpvg.em.pack``, each shard's
+    tasks packed and copied to its device (inside the launch span, once
+    per shard that takes tasks), and ``rpvg.em.fold``, the results back
+    in task order with the sub-threshold mass folded."""
     if not cluster_inputs:
         return [], None
     if device.type == "cpu" and not fuse_em_enabled() and native_em_available():
-        return run_native_em(cluster_inputs, max_em_its, max_rel_em_conv), None
+        with spans.Span("rpvg.em.launch"):
+            return run_native_em(cluster_inputs, max_em_its, max_rel_em_conv), None
     if fuse_em_enabled():
         results: List[Tuple[np.ndarray, float]] = [None] * len(cluster_inputs)
-        pending = dispatch_em_device(
-            cluster_inputs, range(len(cluster_inputs)), max_em_its, max_rel_em_conv, device
-        )
-        gather_em_device(pending, cluster_inputs, results)
+        with spans.Span("rpvg.em.launch"):
+            pending = dispatch_em_device(
+                cluster_inputs, range(len(cluster_inputs)), max_em_its, max_rel_em_conv, device
+            )
+            gather_em_device(pending, cluster_inputs, results)
         return results, None
     devices = autoshard.data_devices(device)
     ranges = autoshard.shard_tasks([probs.shape for probs, _ in cluster_inputs], len(devices))
     packed = PackedShards([], [], [])
     launched = []
-    for shard, ((lo, hi), shard_device) in enumerate(zip(ranges, devices)):
-        if hi > lo:
-            tasks = pack_ragged(cluster_inputs[lo:hi], shard_device)
-            packed.parts.append(tasks)
-            packed.starts.append(lo)
-            packed.shards.append(shard)
-            launched.append(em_cuda.em_fixed_point(tasks, max_em_its, max_rel_em_conv)[0])
+    # A shard's kernels start before the next shard packs, so each
+    # shard's packing is a child of the launch span.
+    with spans.Span("rpvg.em.launch"):
+        for shard, ((lo, hi), shard_device) in enumerate(zip(ranges, devices)):
+            if hi > lo:
+                with spans.Span("rpvg.em.pack"):
+                    tasks = pack_ragged(cluster_inputs[lo:hi], shard_device)
+                packed.parts.append(tasks)
+                packed.starts.append(lo)
+                packed.shards.append(shard)
+                launched.append(em_cuda.em_fixed_point(tasks, max_em_its, max_rel_em_conv)[0])
+        # The call's one wait for the card.
+        launched = [fracs.cpu() for fracs in launched]
     autoshard.count_shards("em_tasks", [hi - lo for lo, hi in ranges])
     results = []
-    for start, tasks, fracs in zip(packed.starts, packed.parts, launched):
-        results.extend(fold_fractions(fracs, tasks, cluster_inputs[start : start + tasks.n_tasks]))
+    with spans.Span("rpvg.em.fold"):
+        for start, tasks, fracs in zip(packed.starts, packed.parts, launched):
+            results.extend(
+                fold_fractions(fracs, tasks, cluster_inputs[start : start + tasks.n_tasks])
+            )
     return results, packed
 
 
